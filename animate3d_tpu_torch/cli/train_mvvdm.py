@@ -1,0 +1,247 @@
+"""MV-VDM trainer CLI of the PyTorch port, on one device.
+
+    python -m animate3d_tpu_torch.cli.train_mvvdm --config <yaml> [key.path=value ...]
+
+Reads the keys of ``configs/training/train.yaml`` (and of the JAX CLI,
+``animate3d_tpu/cli/train_mvvdm.py``): builds the MV motion UNet + VAE with
+random weights from ``global_seed`` (no weight files in the repository yet),
+keeps f32 masters of the trainable parameters with the UNet in bf16 on
+CUDA, and runs the loop: VAE posterior sample x 0.18215, the train step,
+metrics at the log cadence, checkpoints and the motion-module export every
+``checkpointing_steps`` and at the end, resume from the latest checkpoint,
+and validation sampling every ``validation_steps``. The first batch is
+dumped as ``sanity_check.gif``. Text and IP-Adapter image embeddings are
+zeros (no CLIP towers yet). The frozen weights are always stored in the
+compute dtype (the JAX CLI's ``cast_frozen_bf16: true``, its default). Keys
+that ask for what is not ported yet (weights on disk, wandb, the ZeRO
+optimizer) raise. Runs on CUDA; ``--device cpu`` exists for the tests.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def _check_supported(cfg: dict) -> None:
+    """Raise on config keys whose feature the port does not have yet,
+    rather than train without it."""
+    for key in ("flax_params_dir", "pretrained_model_path"):
+        if cfg.get(key) and os.path.isdir(cfg[key]):
+            raise NotImplementedError(f"{key}={cfg[key]!r}: loading weights from disk is "
+                                      "not ported yet (the port trains from a seeded init)")
+    for key in ("use_wandb", "zero_sharded_optimizer"):
+        if cfg.get(key):
+            raise NotImplementedError(f"{key}: not ported yet")
+    if cfg.get("cast_frozen_bf16", True) is False:
+        raise NotImplementedError("cast_frozen_bf16: false (frozen weights kept in f32) "
+                                  "is not ported; the port stores them in the compute dtype")
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {"unet", "optimizer", "metrics" (one dict per
+    step run), "step_seconds" (wall per step, ended by a device
+    synchronise on CUDA), "start_step"}."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cpu is for tests")
+    parser.add_argument("extras", nargs="*", help="dotted overrides key.path=value")
+    args = parser.parse_args(argv)
+
+    import yaml
+
+    from animate3d_tpu_torch.core.checkpoint import (
+        extract_motion_modules,
+        find_latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from animate3d_tpu_torch.core.config import deep_merge, parse_cli_overrides
+    from animate3d_tpu_torch.core.device import resolve_device
+    from animate3d_tpu_torch.data.video_dataset import MVideoConfig, MVideoDataset, Prefetcher
+    from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
+    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.pipelines.train_mvvdm import (
+        MVVDMTrainConfig,
+        TrainBatch,
+        cast_frozen_bf16,
+        make_optimizer,
+        train_step,
+    )
+    from animate3d_tpu_torch.utils.logging import MetricsLogger
+    from animate3d_tpu_torch.utils.saving import save_videos_grid
+
+    with open(args.config) as fh:
+        cfg = yaml.safe_load(fh) or {}
+    cfg = deep_merge(cfg, parse_cli_overrides(args.extras))
+    _check_supported(cfg)
+    dev = resolve_device(args.device)
+
+    out_dir = cfg.get("output_dir", "outputs/mvvdm")
+    os.makedirs(out_dir, exist_ok=True)
+    n_views = cfg.get("num_views", 4)
+    n_frames = cfg.get("video_length", 16)
+    sample_size = cfg.get("sample_size", 256)
+    seed = cfg.get("global_seed", 42)
+
+    ckpt_flag = bool(cfg.get("gradient_checkpointing", False))
+    unet, vae = build_models(cfg.get("model_size", "full"), n_views, dev, seed=seed,
+                             train=True, gradient_checkpointing=ckpt_flag)
+    print("WARNING: no UNet weights given — random init (smoke mode)")
+    if ckpt_flag:
+        print("[train] gradient checkpointing (block recompute) enabled")
+    masters = cast_frozen_bf16(unet, torch.bfloat16 if dev.type == "cuda" else torch.float32)
+    ucfg = unet.config
+    lat = sample_size // (2 ** (len(vae.config.block_out_channels) - 1))
+
+    dataset = MVideoDataset(MVideoConfig(
+        manifest_path=cfg["train_data"]["manifest_path"],
+        video_root=cfg["train_data"].get("video_root", ""),
+        sample_size=sample_size, sample_n_frames=n_frames, num_views=n_views,
+        total_frames=cfg["train_data"].get("total_frames", 48),
+        elevation=cfg["train_data"].get("elevation", 15.0)), seed=seed)
+    batch_size = cfg.get("train_batch_size", 1)
+    max_steps = cfg.get("max_train_steps",
+                        cfg.get("max_train_epoch", 20) * max(len(dataset), 1))
+    tcfg = MVVDMTrainConfig(
+        learning_rate=cfg.get("learning_rate", 1e-4),
+        cfg_dropout_prob=cfg.get("cfg_random_null_text_ratio", 0.1),
+        num_views=n_views,
+        i2v_cond_time_zero=cfg.get("i2v_cond_time_zero", False),
+        max_grad_norm=cfg.get("max_grad_norm", 1.0),
+        lr_scheduler=cfg.get("lr_scheduler", "constant"),
+        lr_warmup_steps=cfg.get("lr_warmup_steps", 0),
+        max_train_steps=max_steps,
+        gradient_accumulation_steps=cfg.get("gradient_accumulation_steps", 1),
+        scale_lr=cfg.get("scale_lr", False),
+        lr_scale_factor=float(batch_size),
+    )
+    opt = make_optimizer(masters, tcfg)
+    scheduler = DDIMScheduler(SchedulerConfig(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    start_step = 0
+    latest = find_latest_checkpoint(ckpt_dir)
+    if latest and cfg.get("auto_resume", True):
+        state = restore_checkpoint(latest)
+        res = unet.load_state_dict(state["frozen"], strict=False)
+        if res.unexpected_keys or set(res.missing_keys) != set(masters):
+            raise RuntimeError(f"{latest} does not match this model: missing "
+                               f"{sorted(set(res.missing_keys) - set(masters))[:5]}, "
+                               f"unexpected {res.unexpected_keys[:5]}")
+        with torch.no_grad():
+            for name, m in masters.items():
+                m.copy_(state["masters"][name])
+            params = dict(unet.named_parameters())
+            for name, m in masters.items():
+                params[name].copy_(m)
+        opt.load_state_dict(state["optimizer"])
+        gen.set_state(state["generator"])
+        start_step = int(state["step"])
+        print(f"[resume] {latest} @ step {start_step}")
+
+    depth = int(cfg.get("prefetch_depth", 2))
+    batches = dataset.iterate(batch_size=batch_size)
+    prefetch = Prefetcher(batches, depth=depth) if depth > 0 else None
+    it = prefetch or batches
+
+    print("[text] WARNING: no text encoder — zero text conditioning (smoke mode)")
+    print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
+    ctx_dim, img_dim = ucfg.cross_attention_dim, ucfg.image_embed_dim
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    ckpt_every = cfg.get("checkpointing_steps", 1000)
+    validation_steps = cfg.get("validation_steps", 0)
+    validation_tuple = tuple(cfg.get("validation_steps_tuple", ()))
+    log_every = int(cfg.get("log_every_n_steps", 10))
+
+    @torch.no_grad()
+    def vae_sample(imgs: torch.Tensor, chunk: int = 16) -> torch.Tensor:
+        """Posterior *sample* of (M, H, W, 3) images, ``chunk`` at a time."""
+        outs = []
+        for i in range(0, imgs.shape[0], chunk):
+            mean, logvar = vae.encode(imgs[i:i + chunk])
+            eps = torch.randn(mean.shape, generator=gen, device=dev)
+            outs.append(mean + torch.exp(0.5 * logvar) * eps)
+        return torch.cat(outs)
+
+    def run_validation(step: int, raw) -> None:
+        """Sample on the first video's conditioning with the sampling
+        pipeline and write a 4-view GIF."""
+        from animate3d_tpu_torch.pipelines.mv_sampler import (
+            MVSampler,
+            MVSamplerConfig,
+            decode_video,
+            encode_conditioning_images,
+        )
+        from animate3d_tpu_torch.utils.saving import export_to_gif_mv
+
+        n, f = raw["pixel_values"].shape[1:3]
+        frame0 = torch.as_tensor(raw["pixel_values"][0, :, 0], device=dev)
+        ffl = encode_conditioning_images(vae, frame0)
+        text = torch.zeros((n, 77, ctx_dim), device=dev)
+        scfg = MVSamplerConfig(
+            num_inference_steps=cfg.get("validation_num_steps", 25), num_views=n,
+            num_frames=f, height=sample_size, width=sample_size,
+            vae_scale_factor=2 ** (len(vae.config.block_out_channels) - 1),
+            freeinit_enabled=False, i2v_cond_time_zero=tcfg.i2v_cond_time_zero)
+        latents = MVSampler(unet, scfg, scheduler).sample(
+            ffl, text, text, torch.zeros((n, img_dim), device=dev), generator=gen)
+        out = os.path.join(out_dir, "samples", f"sample-{step}.gif")
+        export_to_gif_mv(decode_video(vae, latents).cpu().numpy(), out)
+        print(f"[val] wrote {out}")
+
+    def save(step: int) -> None:
+        frozen = {k: v for k, v in unet.state_dict().items() if k not in masters}
+        save_checkpoint(ckpt_dir, step, {
+            "step": step, "masters": masters, "frozen": frozen,
+            "optimizer": opt.state_dict(), "generator": gen.get_state()})
+        save_checkpoint(os.path.join(out_dir, "motion_modules"), step,
+                        {"params": extract_motion_modules(masters)}, keep=2)
+
+    metrics_all, step_seconds = [], []
+    try:
+        for step in range(start_step, max_steps):
+            t0 = time.perf_counter()
+            raw = next(it)
+            b, n, f = raw["pixel_values"].shape[:3]
+            if step == start_step:
+                vids = (raw["pixel_values"].reshape(b * n, f, sample_size, sample_size, 3) + 1) / 2
+                save_videos_grid(vids, os.path.join(out_dir, "sanity_check.gif"), n_rows=n)
+            imgs = torch.as_tensor(
+                raw["pixel_values"].reshape(b * n * f, sample_size, sample_size, 3), device=dev)
+            latents = (vae_sample(imgs) * 0.18215).reshape(b * n, f, lat, lat, 4)
+            text_ctx = torch.zeros((b * n, 77, ctx_dim), device=dev)
+            batch = TrainBatch(
+                latents=latents, text_ctx=text_ctx, null_text_ctx=torch.zeros_like(text_ctx),
+                camera=torch.as_tensor(raw["cameras"].reshape(b * n, 16), device=dev),
+                image_embeds=torch.zeros((b * n, img_dim), device=dev))
+            metrics = train_step(unet, opt, batch, tcfg, scheduler, gen)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_seconds.append(time.perf_counter() - t0)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics_all.append(metrics)
+            logger.log(step, {**metrics, "sec_per_step": step_seconds[-1]})
+            if step % log_every == 0 or step + 1 == max_steps:
+                print(f"[{step}/{max_steps}] loss={metrics['loss']:.5f} "
+                      f"grad_norm={metrics['grad_norm']:.4f} ({step_seconds[-1]:.3f} s/it)")
+            if ((validation_steps and (step + 1) % validation_steps == 0)
+                    or (step + 1) in validation_tuple):
+                run_validation(step + 1, raw)
+            if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
+                save(step + 1)
+    finally:
+        if prefetch is not None:
+            prefetch.close()
+    return {"unet": unet, "optimizer": opt, "metrics": metrics_all,
+            "step_seconds": step_seconds, "start_step": start_step}
+
+
+if __name__ == "__main__":
+    main()

@@ -29,12 +29,9 @@
 // accumulators become PV's A operand in place. Not yet: wgmma, TMA, warp
 // specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "mma_common.cuh"
 
 namespace {
 
@@ -50,73 +47,6 @@ struct Cfg {
   static constexpr int TILE = 64 * LD;  // elements of one 64-row tile
   static constexpr size_t SMEM = (size_t)5 * TILE * sizeof(bf16);  // Q + 2x(K, V)
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (-inf -> 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// rows [row0, row0 + 64) of one head into a (64, LD) smem tile by cp.async,
-// zero-filling the padded columns and rows past `limit`
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long rs,
-                                          int row0, int limit, int D) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per padded row
-  const int dch = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = row0 + r < limit && c < dch;
-    const bf16* g = ok ? src + (long long)(row0 + r) * rs + c * 8 : src;
-    cp_async16(dst + r * Cfg<DP>::LD + c * 8, g, ok);
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS)
@@ -142,9 +72,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (long long)(b / kv_group) * v_bs + (long long)h * D;
   const int ntiles = (Sk + BK - 1) / BK;
 
-  load_tile<DP>(sQ, qb, q_rs, q0, Sq, D);
-  load_tile<DP>(sK[0], kb, k_rs, 0, Sk, D);
-  load_tile<DP>(sV[0], vb, v_rs, 0, Sk, D);
+  load_tile<DP, Cfg<DP>::LD>(sQ, qb, q_rs, q0, Sq, D);
+  load_tile<DP, Cfg<DP>::LD>(sK[0], kb, k_rs, 0, Sk, D);
+  load_tile<DP, Cfg<DP>::LD>(sV[0], vb, v_rs, 0, Sk, D);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -164,8 +94,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     const int st = it & 1;
     if (it + 1 < ntiles) {
-      load_tile<DP>(sK[st ^ 1], kb, k_rs, (it + 1) * BK, Sk, D);
-      load_tile<DP>(sV[st ^ 1], vb, v_rs, (it + 1) * BK, Sk, D);
+      load_tile<DP, Cfg<DP>::LD>(sK[st ^ 1], kb, k_rs, (it + 1) * BK, Sk, D);
+      load_tile<DP, Cfg<DP>::LD>(sV[st ^ 1], vb, v_rs, (it + 1) * BK, Sk, D);
     }
     cp_async_commit();
     cp_async_wait<1>();

@@ -5,11 +5,14 @@ the repository, so, like the JAX CLI without a weights bundle ("smoke
 mode"), the port initialises every parameter from a seed: weight matrices
 and conv kernels LeCun-normal, biases zero, norms one/zero, blender mixes
 zero — the JAX package's initialisers — then applies the install-time
-adapter initialisation of ``adapter_init_parity``.
+adapter initialisation of ``adapter_init_parity``. The trainer's build
+(``train=True``) is the same seeded init, left in float32 for
+``pipelines.train_mvvdm.cast_frozen_bf16`` to take the f32 masters from.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -21,6 +24,7 @@ from animate3d_tpu_torch.models.attention_layers import (
 )
 from animate3d_tpu_torch.models.unet_mv import MVMotionUNet, MVUNetConfig
 from animate3d_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from animate3d_tpu_torch.pipelines.train_mvvdm import trainable_mask
 
 
 @torch.no_grad()
@@ -54,11 +58,15 @@ def init_params(module: torch.nn.Module, seed: int) -> None:
 
 
 def build_models(model_size: str, num_views: int, device=None, seed: int = 0,
-                 dtype: Optional[torch.dtype] = None
+                 dtype: Optional[torch.dtype] = None, train: bool = False,
+                 gradient_checkpointing: bool = False
                  ) -> Tuple[MVMotionUNet, AutoencoderKL]:
     """(unet, vae) at ``full`` or ``tiny`` scale on ``device`` (default
-    ``cuda``), in eval mode without gradients. The UNet runs in ``dtype``
-    (default bf16 on CUDA, float32 on the CPU); the VAE in float32."""
+    ``cuda``). For sampling the UNet is in eval mode without gradients and
+    runs in ``dtype`` (default bf16 on CUDA, float32 on the CPU). With
+    ``train`` it stays float32, in train mode, with ``requires_grad`` only on
+    the trainable parameters (the trainer casts it). The VAE is float32 and
+    frozen."""
     dev = resolve_device(device)
     if model_size == "tiny":
         ucfg, vcfg = MVUNetConfig.tiny(num_views=num_views), VAEConfig.tiny()
@@ -66,13 +74,19 @@ def build_models(model_size: str, num_views: int, device=None, seed: int = 0,
         ucfg, vcfg = MVUNetConfig(num_views=num_views), VAEConfig()
     else:
         raise ValueError(f"model_size must be 'full' or 'tiny', got {model_size!r}")
+    ucfg = dataclasses.replace(ucfg, gradient_checkpointing=gradient_checkpointing)
     with dev:
         unet, vae = MVMotionUNet(ucfg), AutoencoderKL(vcfg)
     init_params(unet, seed)
     init_params(vae, seed + 1)
+    vae.eval().requires_grad_(False)
+    if train:
+        unet.train()
+        mask = trainable_mask(unet)
+        for name, p in unet.named_parameters():
+            p.requires_grad_(mask[name])
+        return unet, vae
     if dtype is None:
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    unet.to(dtype)
-    for m in (unet, vae):
-        m.eval().requires_grad_(False)
+    unet.to(dtype).eval().requires_grad_(False)
     return unet, vae

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from animate3d_tpu_torch.models.embeddings import (
     ImageProjection,
@@ -29,6 +30,7 @@ from animate3d_tpu_torch.models.unet_blocks import (
     SpatialTransformer,
     Upsample2D,
 )
+from animate3d_tpu_torch.ops import routing
 
 
 @dataclass(frozen=True)
@@ -49,6 +51,10 @@ class MVUNetConfig:
     image_embed_dim: int = 1024
     mv_image_attn: bool = True
     motion_attn: MotionAttnConfig = field(default_factory=MotionAttnConfig)
+    # recompute every ResnetBlock2D / SpatialTransformer / MotionModule in
+    # the backward pass instead of storing its activations (the reference's
+    # unet.enable_gradient_checkpointing(); the JAX package's nn.remat)
+    gradient_checkpointing: bool = False
 
     @staticmethod
     def tiny(**kw) -> "MVUNetConfig":
@@ -145,6 +151,14 @@ class MVMotionUNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(32, boc[0], eps=1e-5)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
 
+    def _block(self, fn, *args):
+        """One block call, checkpointed when gradient checkpointing is on
+        and autograd is recording."""
+        if self.config.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=routing.recompute_contexts)
+        return fn(*args)
+
     def forward(self, latents: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
                 camera: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None,
@@ -181,29 +195,30 @@ class MVMotionUNet(nn.Module):
         x = latents.reshape(bn * f, hh, ww, c_in).permute(0, 3, 1, 2).to(dtype)
         x = self.conv_in(x)
         skips = [x]
+        run = self._block
         for blk in self.down_blocks:
             for j, resnet in enumerate(blk.resnets):
-                x = resnet(x, emb)
+                x = run(resnet, x, emb)
                 if hasattr(blk, "attentions"):
-                    x = blk.attentions[j](x, context, ip_context, f)
-                x = blk.motion_modules[j](x, f)
+                    x = run(blk.attentions[j], x, context, ip_context, f)
+                x = run(blk.motion_modules[j], x, f)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, emb)
-        x = mid.attentions[0](x, context, ip_context, f)
-        x = mid.motion_modules[0](x, f)
-        x = mid.resnets[1](x, emb)
+        x = run(mid.resnets[0], x, emb)
+        x = run(mid.attentions[0], x, context, ip_context, f)
+        x = run(mid.motion_modules[0], x, f)
+        x = run(mid.resnets[1], x, emb)
 
         for blk in self.up_blocks:
             for j, resnet in enumerate(blk.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=1), emb)
+                x = run(resnet, torch.cat([x, skips.pop()], dim=1), emb)
                 if hasattr(blk, "attentions"):
-                    x = blk.attentions[j](x, context, ip_context, f)
-                x = blk.motion_modules[j](x, f)
+                    x = run(blk.attentions[j], x, context, ip_context, f)
+                x = run(blk.motion_modules[j], x, f)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
 

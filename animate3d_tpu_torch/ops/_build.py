@@ -6,8 +6,10 @@ shared library with a plain C interface, under ``_build/`` (listed in
 rebuilds. All missing libraries build in parallel, one ``nvcc`` each. A
 failed build or load raises; nothing here runs at import time.
 
-``LAUNCHES`` counts kernel launches by (kernel name, shape key): each
+``LAUNCHES`` counts kernel launches by (counter name, shape key): each
 wrapper adds one right where it launches its kernel, and nowhere else.
+A library may hold more than one kernel (``flash_bwd``: dq and dkv), so the
+counter names (``COUNTERS``) are the kernels', not the libraries'.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("flash_fwd", "packed_attn", "geglu")
+KERNELS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd", "packed_attn_bwd")
+COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
+            "packed_attn_bwd")
 
 LAUNCHES: "collections.Counter[tuple]" = collections.Counter()
 
@@ -41,8 +45,8 @@ def reset_launches() -> None:
 
 
 def launch_totals() -> Dict[str, int]:
-    """Launches per kernel name, summed over shapes."""
-    totals = {name: 0 for name in KERNELS}
+    """Launches per counter name, summed over shapes."""
+    totals = {name: 0 for name in COUNTERS}
     for (name, _), n in LAUNCHES.items():
         totals[name] += n
     return totals

@@ -7,15 +7,21 @@ heads, q ``(B, Sq, H*D)`` and k/v ``(B', Sk, H*D)``, like the JAX module.
   ``flash_attention_padded`` route. Returns ``(out, lse)``.
 * :func:`packed_attention` — kernel B (``csrc/packed_attn.cu``), the TPU's
   ``packed_temporal_flash_padded`` route over many short sequences.
+* :func:`flash_attention_bwd` — kernel D (``csrc/flash_bwd.cu``), the
+  TPU's ``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel``.
+* :func:`packed_attention_bwd` — kernel E (``csrc/packed_attn_bwd.cu``),
+  the TPU's ``_packed_padded_bwd_kernel``.
 * :func:`attention_xla` / :func:`packed_small_attention` — the plain
-  versions (einsum + f32 softmax), kept under the JAX names.
+  versions (einsum + f32 softmax), kept under the JAX names; the plain
+  backward versions are ``_flash_bwd_plain`` and ``_packed_bwd_plain``.
 
 :func:`multi_head_attention` routes with the TPU's shape predicates, with
-"on TPU" read as "on CUDA": see :func:`attention_plan`; under
-``routing.plain_ops()`` a kernel site runs that kernel's plain version
-(``_flash_plain``, :func:`packed_small_attention`). The wrappers take
-their plain version only for CPU tensors; a CUDA tensor goes to the kernel
-or raises.
+"on TPU" read as "on CUDA": see :func:`attention_plan`. A flash or packed
+site runs through :class:`FlashAttentionFn` (A forward, D backward) or
+:class:`PackedAttentionFn` (B forward, E backward); under
+``routing.plain_ops()`` both directions take the kernels' plain versions.
+The wrappers take their plain version only for CPU tensors; a CUDA tensor
+goes to the kernel or raises.
 """
 
 from __future__ import annotations
@@ -92,6 +98,67 @@ def _flash_plain(q, k, v, num_heads: int, scale: float, kv_group: int):
     return torch.cat(outs), torch.cat(lses)
 
 
+def _flash_delta(do: torch.Tensor, out: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Delta = rowsum(dO * O) in f32 per (batch, head, query): (B, H, Sq)."""
+    b, sq, c = out.shape
+    prod = (do.float() * out.float()).reshape(b, sq, num_heads, c // num_heads).sum(-1)
+    return prod.transpose(1, 2).contiguous()
+
+
+def _flash_bwd_plain(q, k, v, out, lse, do, num_heads: int, scale: float, kv_group: int):
+    """Plain version of kernel D with its rounding points: P = exp(s - lse)
+    rebuilt in f32 from the forward's lse (scale after the dot, no clamp),
+    Delta = rowsum(dO O) in f32, bf16 (input dtype) P and dS in the
+    products, f32 sums; dk/dv summed over the kv_group query batches of each
+    K/V batch in f32, then rounded once. Returns (dq, dk, dv). Batches are
+    taken in slices to bound the f32 score-sized tensors held at once."""
+    b, sq, c = q.shape
+    sk = k.shape[1]
+    f32, dt = torch.float32, q.dtype
+    do = do.to(dt)
+    delta = _flash_delta(do, out, num_heads)
+    step = max(1, (1 << 28) // max(1, num_heads * sq * sk))
+    dqs = []
+    dk = torch.zeros((k.shape[0], num_heads, sk, c // num_heads), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    kh_all, vh_all = _split_heads(k, num_heads), _split_heads(v, num_heads)
+    for b0 in range(0, b, step):
+        b1 = min(b, b0 + step)
+        idx = torch.arange(b0, b1, device=q.device) // kv_group
+        qh = _split_heads(q[b0:b1], num_heads).to(f32)
+        doh = _split_heads(do[b0:b1], num_heads).to(f32)
+        kh, vh = kh_all[idx].to(f32), vh_all[idx].to(f32)
+        p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale
+                      - lse[b0:b1, :, :, None])
+        ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta[b0:b1, :, :, None])
+        ds = ds.to(dt).to(f32)
+        dqs.append(_merge_heads(torch.matmul(ds, kh) * scale).to(dt))
+        dk.index_add_(0, idx, torch.matmul(ds.transpose(-1, -2), qh))
+        dv.index_add_(0, idx, torch.matmul(p.to(dt).to(f32).transpose(-1, -2), doh))
+    return (torch.cat(dqs), _merge_heads(dk * scale).to(k.dtype),
+            _merge_heads(dv).to(v.dtype))
+
+
+def _packed_bwd_plain(q, k, v, g, num_heads: int, scale: float):
+    """Plain version of kernel E with its rounding points: normalised P in
+    f32, P_bf16 = P in the input dtype, o = P_bf16 v recomputed in f32,
+    Delta = rowsum(g o) from that o, dS rounded to the input dtype; dq =
+    dS k * scale, dk = dS^T q * scale, dv = P_bf16^T g. The cotangent is
+    first cast to q's dtype. The f32 score-sized tensors are B*H*S^2 (S <=
+    32), far smaller than q, so batches are not sliced."""
+    f32, dt = torch.float32, q.dtype
+    qh, kh, vh, gh = (_split_heads(x.to(dt), num_heads).to(f32) for x in (q, k, v, g))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    pc = p.to(dt).to(f32)
+    o = torch.matmul(pc, vh)
+    delta = (gh * o).sum(-1, keepdim=True)
+    ds = (p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta)).to(dt).to(f32)
+    dq = _merge_heads(torch.matmul(ds, kh) * scale).to(dt)
+    dk = _merge_heads(torch.matmul(ds.transpose(-1, -2), qh) * scale).to(dt)
+    dv = _merge_heads(torch.matmul(pc.transpose(-1, -2), gh)).to(dt)
+    return dq, dk, dv
+
+
 def _check_merged(name: str, x: torch.Tensor, head_dim: int, device) -> None:
     if x.device != device or x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: kernel takes bfloat16 on {device}, "
@@ -117,6 +184,28 @@ def _flash_fn():
 def _packed_fn():
     fn = _build.library("packed_attn").packed_attn
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_fns():
+    lib = _build.library("flash_bwd")
+    dq_fn, dkv_fn = lib.flash_bwd_dq, lib.flash_bwd_dkv
+    dq_fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+                      + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    dkv_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    for fn in (dq_fn, dkv_fn):
+        fn.restype = ctypes.c_int
+    return dq_fn, dkv_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_bwd_fn():
+    fn = _build.library("packed_attn_bwd").packed_attn_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -153,6 +242,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        num_heads: int, scale: float, kv_group: int = 1,
+                        need_dq: bool = True, need_dkv: bool = True):
+    """Kernel D: the gradients (dq, dk, dv) of :func:`flash_attention` from
+    its inputs, its ``out`` and ``lse`` and the cotangent ``do`` (B, Sq,
+    H*D). dk/dv (B // kv_group, Sk, H*D) sum over the kv_group query
+    batches of each K/V batch. On CUDA, ``need_dq`` / ``need_dkv`` False
+    skip that kernel and return None in its place; CPU tensors take the
+    plain version, which returns all three."""
+    b, sq, c = q.shape
+    sk = k.shape[1]
+    d = c // num_heads
+    if (k.shape != v.shape or k.shape[0] * kv_group != b or k.shape[2] != c
+            or out.shape != q.shape or do.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} out {tuple(out.shape)} do {tuple(do.shape)} "
+                         f"kv_group {kv_group}")
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, out, lse, do, num_heads, scale, kv_group)
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
+        _check_merged(f"flash_attention_bwd {name}", x, d, q.device)
+    if not (0 < d <= 128 and sk > 0) or c != num_heads * d:
+        raise ValueError(f"flash_attention_bwd: unsupported D={d}, Sk={sk}")
+    if (lse.shape != (b, num_heads, sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 "
+                         f"{(b, num_heads, sq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    delta = _flash_delta(do, out, num_heads)
+    dq_fn, dkv_fn = _flash_bwd_fns()
+    stream = _build.stream_ptr(q.device)
+    common = (b, num_heads, sq, sk, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+              v.stride(0), v.stride(1), do.stride(0), do.stride(1))
+    key = (b, sq, sk, c, kv_group)
+    dq = dk = dv = None
+    if need_dq:
+        dq = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
+        rc = dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), dq.data_ptr(), *common, dq.stride(0), dq.stride(1),
+                   kv_group, scale, stream)
+        _build.check("flash_bwd", rc)
+        _build.LAUNCHES["flash_bwd_dq", key] += 1
+    if need_dkv:
+        dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+        dv = torch.empty(k.shape, dtype=v.dtype, device=q.device)
+        rc = dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common, dk.stride(0),
+                    dk.stride(1), kv_group, scale, stream)
+        _build.check("flash_bwd", rc)
+        _build.LAUNCHES["flash_bwd_dkv", key] += 1
+    return dq, dk, dv
+
+
 PACKED_SEQ = (8, 16, 32)
 PACKED_HEAD_DIMS = (40, 80)
 
@@ -182,6 +325,85 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check("packed_attn", rc)
     _build.LAUNCHES["packed_attn", (b, s, c)] += 1
     return out
+
+
+def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         g: torch.Tensor, num_heads: int, scale: float):
+    """Kernel E: (dq, dk, dv) of :func:`packed_attention` for the cotangent
+    ``g`` (B, S, H*D), which is first cast to q's dtype, as the TPU route
+    does; shapes and strides as :func:`packed_attention` takes them."""
+    b, s, c = q.shape
+    d = c // num_heads
+    if not (q.shape == k.shape == v.shape == g.shape):
+        raise ValueError("packed_attention_bwd: q/k/v/g shapes differ")
+    g = g.to(q.dtype)
+    if q.device.type == "cpu":
+        return _packed_bwd_plain(q, k, v, g, num_heads, scale)
+    if s not in PACKED_SEQ or d not in PACKED_HEAD_DIMS or c != num_heads * d:
+        raise ValueError(f"packed_attention_bwd: unsupported S={s}, D={d}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("g", g)):
+        _check_merged(f"packed_attention_bwd {name}", x, d, q.device)
+        if x.stride(0) != s * x.stride(1):
+            raise ValueError(f"packed_attention_bwd {name}: batches must be "
+                             f"evenly spaced rows, strides {x.stride()}")
+    dq, dk, dv = (torch.empty((b, s, c), dtype=q.dtype, device=q.device) for _ in range(3))
+    rc = _packed_bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, num_heads, d,
+                          q.stride(1), k.stride(1), v.stride(1), g.stride(1), dq.stride(1),
+                          scale, _build.stream_ptr(q.device))
+    _build.check("packed_attn_bwd", rc)
+    _build.LAUNCHES["packed_attn_bwd", (b, s, c)] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel A forward, kernel D backward; with ``kernels`` False (plain
+    ops, CPU tensors) their plain versions. Saves q, k, v, out and the f32
+    lse, never the logits. The backward skips dq or dk/dv where no input
+    needs it (``ctx.needs_input_grad``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float, kv_group: int, kernels: bool):
+        fwd = flash_attention if kernels else _flash_plain
+        out, lse = fwd(q, k, v, num_heads, scale, kv_group)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (num_heads, scale, kv_group, kernels)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        num_heads, scale, kv_group, kernels = ctx.args
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        do = do.to(q.dtype).contiguous()
+        if kernels:
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, num_heads, scale,
+                                             kv_group, need_q, need_k or need_v)
+        else:
+            dq, dk, dv = _flash_bwd_plain(q, k, v, out, lse, do, num_heads, scale, kv_group)
+        return (dq if need_q else None, dk if need_k else None, dv if need_v else None,
+                None, None, None, None)
+
+
+class PackedAttentionFn(torch.autograd.Function):
+    """Kernel B forward, kernel E backward (their plain versions when
+    ``kernels`` is False); saves q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float, kernels: bool):
+        fwd = packed_attention if kernels else packed_small_attention
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (num_heads, scale, kernels)
+        return fwd(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        num_heads, scale, kernels = ctx.args
+        bwd = packed_attention_bwd if kernels else _packed_bwd_plain
+        grads = bwd(q, k, v, g.to(q.dtype).contiguous(), num_heads, scale)
+        return tuple(x if need else None
+                     for x, need in zip(grads, ctx.needs_input_grad[:3])) + (None,) * 3
 
 
 def packed_plan(batch: int, seq: int, channels: int, num_heads: int) -> bool:
@@ -233,11 +455,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           num_heads, self_attention, q.device.type == "cuda")
     kernels = routing.kernels_enabled(q.device)
     if plan == "packed":
-        fn = packed_attention if kernels else packed_small_attention
-        return fn(q, k, v, num_heads, scale)
+        return PackedAttentionFn.apply(q, k, v, num_heads, scale, kernels)
     if plan == "flash":
-        fn = flash_attention if kernels else _flash_plain
-        return fn(q, k, v, num_heads, scale, kv_group)[0]
+        return FlashAttentionFn.apply(q, k, v, num_heads, scale, kv_group, kernels)
     if kv_group > 1:
         k = k.repeat_interleave(kv_group, dim=0)
         v = v.repeat_interleave(kv_group, dim=0)

@@ -4,6 +4,11 @@ Port of ``animate3d_tpu/ops/geglu.py``. Weights are in torch Linear layout:
 ``w1`` (2I, C) whose first I rows are the hidden half and last I rows the
 gate half, ``w2`` (C, I). ``y = ((x w1h^T + b1h) * gelu(x w1g^T + b1g))
 w2^T + b2`` with the exact (erf) GELU.
+
+:class:`GegluFn` runs kernel C forward; its backward is the autograd of
+:func:`_geglu_reference` (all math in the model dtype), as the JAX
+package's VJP is the XLA autograd of its reference expression: there is no
+backward kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +37,14 @@ def _geglu_plain(x, w1, b1, w2, b2):
     hidden = (h * gelu_exact(g)).to(x.dtype)
     y = torch.nn.functional.linear(hidden.to(f32), w2.to(f32), b2.to(f32))
     return y.to(x.dtype)
+
+
+def _geglu_reference(x, w1, b1, w2, b2):
+    """The JAX package's ``_geglu_reference``: every product, bias add and
+    the gate in the input dtype (no f32 rounding points)."""
+    p = torch.matmul(x, w1.t()) + b1
+    h, g = p.chunk(2, dim=-1)
+    return torch.matmul(h * gelu_exact(g), w2.t()) + b2
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,6 +85,28 @@ def geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return y
 
 
+class GegluFn(torch.autograd.Function):
+    """Kernel C forward (its plain version for CPU tensors); the backward
+    is the autograd of :func:`_geglu_reference` on the saved inputs, with
+    the cotangent cast to the model dtype first."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return geglu(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            y = _geglu_reference(*inputs)
+            wrt = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g.to(y.dtype)))
+        return tuple(next(grads) if need else None for need in needs)
+
+
 def geglu_plan(rows: int, channels: int, inner: int) -> bool:
     """Shape predicate of the TPU's ``geglu_ff`` route (inner % 640 == 0 and
     at least 256 rows), restricted to what kernel C takes (C % 64 == 0)."""
@@ -80,13 +115,14 @@ def geglu_plan(rows: int, channels: int, inner: int) -> bool:
 
 def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """GEGLU feed-forward over the last axis of ``x``: kernel C on CUDA
-    where :func:`geglu_plan` holds, the plain path elsewhere."""
+    """GEGLU feed-forward over the last axis of ``x``: kernel C (through
+    :class:`GegluFn`) on CUDA where :func:`geglu_plan` holds, the plain
+    path, differentiated by autograd, elsewhere."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if routing.kernels_enabled(x.device) and geglu_plan(
             x2.shape[0], x2.shape[1], w2.shape[1]):
-        y = geglu(x2.contiguous(), w1, b1, w2, b2)
+        y = GegluFn.apply(x2.contiguous(), w1, b1, w2, b2)
     else:
         y = _geglu_plain(x2, w1, b1, w2, b2)
     return y.reshape(lead + (w2.shape[0],))

@@ -31,3 +31,11 @@ def plain_ops():
 def kernels_enabled(device) -> bool:
     """Whether the routers launch a kernel for tensors on ``device``."""
     return device.type == "cuda" and not getattr(_local, "plain", False)
+
+
+def recompute_contexts():
+    """``context_fn`` for ``torch.utils.checkpoint(use_reentrant=False)``:
+    the recomputation, which runs in autograd's thread, takes the same
+    implementations as the forward did in this thread."""
+    plain = getattr(_local, "plain", False)
+    return contextlib.nullcontext(), (plain_ops() if plain else contextlib.nullcontext())

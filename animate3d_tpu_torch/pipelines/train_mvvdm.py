@@ -1,0 +1,227 @@
+"""MV-VDM trainer: fine-tuning of the motion modules and adapters.
+
+Port of ``animate3d_tpu/pipelines/train_mvvdm.py`` on one device:
+  * only parameters whose names carry a ``TRAINABLE_KEY_MARKERS`` entry
+    train (motion modules, I2V / spatial adapters, alpha blenders);
+  * the first frame stays noise-free as the I2V condition, one random
+    timestep per video repeated over its views, ``add_noise`` on frames
+    1..F-1, epsilon-MSE in f32 on frames 1..F-1;
+  * per-video CFG dropout of the text context to the null context;
+  * AdamW after global-norm clipping, with the optax schedules.
+
+Precision mirrors the JAX trainer: the UNet module runs in the model dtype
+(bf16 on the card) and holds every parameter in it; the optimizer
+(:class:`MasterAdamW`) owns f32 master copies of the trainable parameters
+only. After ``backward`` their bf16 gradients are upcast, clipped and
+stepped on the masters, and the masters are copied back into the module.
+Frozen parameters get no gradient, no state and no update.
+
+The random draws come from an explicit ``torch.Generator``; :func:`loss_fn`
+also takes the draws as tensors so that tests can hand it the ones JAX made.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from animate3d_tpu_torch.models.diffusion import DDIMScheduler
+
+TRAINABLE_KEY_MARKERS = (
+    "motion_modules",  # all temporal transformers
+    "to_q_i2v", "to_k_i2v", "to_v_i2v", "to_out_i2v",  # I2V adapters
+    "to_q_sp", "to_k_sp", "to_v_sp", "to_out_sp",  # spatial adapters
+    "alpha_blender",
+)
+
+
+@dataclass(frozen=True)
+class MVVDMTrainConfig:
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    cfg_dropout_prob: float = 0.1
+    num_views: int = 4
+    i2v_cond_time_zero: bool = False
+    lr_scheduler: str = "constant"  # constant | linear | cosine
+    lr_warmup_steps: int = 0
+    max_train_steps: int = 100000  # decay horizon for linear / cosine
+    # the reference's gradient_accumulation_steps only scales the LR (its
+    # loop steps every batch), kept for config parity as in the JAX package
+    gradient_accumulation_steps: int = 1
+    scale_lr: bool = False
+    lr_scale_factor: float = 1.0  # the batch size when scale_lr
+
+
+def make_lr_schedule(cfg: MVVDMTrainConfig) -> Callable[[int], float]:
+    """count -> learning rate, the values of the JAX package's optax
+    schedules: constant / linear to 0 / cosine to 0, after a linear warmup
+    from 0 when ``lr_warmup_steps`` is set."""
+    lr = cfg.learning_rate
+    if cfg.scale_lr:
+        lr = lr * cfg.gradient_accumulation_steps * cfg.lr_scale_factor
+    warmup = cfg.lr_warmup_steps * cfg.gradient_accumulation_steps
+    decay = max(cfg.max_train_steps * cfg.gradient_accumulation_steps, warmup + 1) - warmup
+
+    def linear(init: float, end: float, steps: int, count: int) -> float:
+        if steps <= 0:
+            return init
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    if cfg.lr_scheduler == "constant":
+        def main(count):
+            return lr
+    elif cfg.lr_scheduler == "linear":
+        def main(count):
+            return linear(lr, 0.0, decay, count)
+    elif cfg.lr_scheduler == "cosine":
+        def main(count):
+            return lr * 0.5 * (1.0 + math.cos(math.pi * min(count, decay) / decay))
+    else:
+        raise ValueError(f"unknown lr_scheduler {cfg.lr_scheduler!r}")
+    if not warmup:
+        return main
+    return lambda count: (linear(0.0, lr, warmup, count) if count < warmup
+                          else main(count - warmup))
+
+
+def is_trainable(name: str) -> bool:
+    """True for the parameters the reference unfreezes, by diffusers name."""
+    return any(m in name for m in TRAINABLE_KEY_MARKERS)
+
+
+def trainable_mask(module: torch.nn.Module) -> Dict[str, bool]:
+    """{parameter name: trainable} over ``module``'s parameters (the JAX
+    package's ``trainable_mask`` over the port's diffusers names)."""
+    return {name: is_trainable(name) for name, _ in module.named_parameters()}
+
+
+def cast_frozen_bf16(unet: torch.nn.Module, dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """Keep f32 master copies of the trainable parameters, then cast the
+    whole module to ``dtype``: frozen weights are stored in it, as the JAX
+    trainer stores them, and trainable ones are the compute copies the
+    masters are written back to after every step. Returns the masters."""
+    masters = {name: p.detach().float().clone() for name, p in unet.named_parameters()
+               if is_trainable(name)}
+    unet.to(dtype)
+    return masters
+
+
+class MasterAdamW:
+    """optax ``chain(clip_by_global_norm, adamw)`` over f32 masters.
+
+    Clipping is optax's rule, ``g if norm < max else g / norm * max`` with
+    no epsilon (``clip_grad_norm_`` adds 1e-6). ``torch.optim.AdamW``'s math
+    is optax ``adamw``'s (decoupled decay, eps outside the square root); the
+    learning rate of each step is the schedule at the count before it, as
+    optax's ``scale_by_schedule`` reads it."""
+
+    def __init__(self, masters: Dict[str, torch.Tensor], cfg: MVVDMTrainConfig):
+        self.masters = masters
+        self.max_grad_norm = cfg.max_grad_norm
+        self.schedule = make_lr_schedule(cfg)
+        self.count = 0
+        self.adamw = torch.optim.AdamW(list(masters.values()), lr=self.schedule(0),
+                                       betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+                                       weight_decay=cfg.weight_decay)
+
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One update from the gradients of the masters, in their order
+        (any dtype; upcast to f32). Returns the global norm before clipping."""
+        grads = [g.float() for g in grads]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if not bool(norm < self.max_grad_norm):
+            grads = [g / norm * self.max_grad_norm for g in grads]
+        for m, g in zip(self.masters.values(), grads):
+            m.grad = g
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+        for m in self.masters.values():
+            m.grad = None
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adamw.load_state_dict(state["adamw"])
+
+
+def make_optimizer(masters: Dict[str, torch.Tensor], cfg: MVVDMTrainConfig) -> MasterAdamW:
+    """The JAX package's ``make_optimizer`` over the trainable masters."""
+    return MasterAdamW(masters, cfg)
+
+
+class TrainBatch(NamedTuple):
+    """Pre-encoded training batch, leading axis B*N (view-major)."""
+
+    latents: torch.Tensor  # (B*N, F, h, w, 4) clean VAE latents x 0.18215
+    text_ctx: torch.Tensor  # (B*N, 77, D)
+    null_text_ctx: torch.Tensor  # (B*N, 77, D) empty-prompt embeds (CFG dropout)
+    camera: torch.Tensor  # (B*N, 16)
+    image_embeds: Optional[torch.Tensor]  # (B*N, D_img) or None
+
+
+def draw(batch: TrainBatch, cfg: MVVDMTrainConfig, num_train_timesteps: int,
+         generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(t per video (B,), noise for frames 1..F-1, CFG drop per video (B,))."""
+    lat = batch.latents
+    b = lat.shape[0] // cfg.num_views
+    dev = lat.device
+    t = torch.randint(0, num_train_timesteps, (b,), generator=generator, device=dev)
+    noise = torch.randn(lat[:, 1:].shape, generator=generator, device=dev, dtype=lat.dtype)
+    drop = torch.rand((b,), generator=generator, device=dev) < cfg.cfg_dropout_prob
+    return t, noise, drop
+
+
+def loss_fn(unet: torch.nn.Module, batch: TrainBatch, t: torch.Tensor, noise: torch.Tensor,
+            drop: torch.Tensor, cfg: MVVDMTrainConfig, scheduler: DDIMScheduler
+            ) -> torch.Tensor:
+    """Epsilon-MSE (f32) on frames 1..F-1 for the given draws."""
+    n = cfg.num_views
+    t_views = t.repeat_interleave(n)
+    first, rest = batch.latents[:, :1], batch.latents[:, 1:]
+    noisy = torch.cat([first, scheduler.add_noise(rest, noise, t_views)], dim=1)
+    dropped = drop.repeat_interleave(n)[:, None, None]
+    text_ctx = torch.where(dropped, batch.null_text_ctx, batch.text_ctx)
+    eps = unet(noisy, t_views, text_ctx, batch.camera, batch.image_embeds,
+               i2v_cond_time_zero=cfg.i2v_cond_time_zero)
+    return torch.mean((eps[:, 1:].float() - noise.float()) ** 2)
+
+
+def apply_gradients(unet: torch.nn.Module, opt: MasterAdamW) -> torch.Tensor:
+    """Step the masters on the module's trainable gradients, write them back
+    into the module (in its dtype) and clear the gradients. Returns the
+    global gradient norm before clipping."""
+    params = dict(unet.named_parameters())
+    grads = []
+    for name, m in opt.masters.items():
+        g = params[name].grad
+        grads.append(torch.zeros_like(m) if g is None else g)
+    norm = opt.step(grads)
+    with torch.no_grad():
+        for name, m in opt.masters.items():
+            params[name].copy_(m)
+            params[name].grad = None
+    return norm
+
+
+def train_step(unet: torch.nn.Module, opt: MasterAdamW, batch: TrainBatch,
+               cfg: MVVDMTrainConfig, scheduler: DDIMScheduler,
+               generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """One optimisation step; returns {"loss", "grad_norm"} (device scalars)."""
+    t, noise, drop = draw(batch, cfg, scheduler.config.num_train_timesteps, generator)
+    loss = loss_fn(unet, batch, t, noise, drop, cfg, scheduler)
+    loss.backward()
+    return {"loss": loss.detach(), "grad_norm": apply_gradients(unet, opt)}

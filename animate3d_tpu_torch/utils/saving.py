@@ -1,4 +1,5 @@
-"""Multi-view GIF export (the port's own copy of animate3d_tpu's export_to_gif_mv)."""
+"""GIF export (the port's own copies of animate3d_tpu's ``export_to_gif_mv``
+and ``save_videos_grid``)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,25 @@ def export_to_gif_mv(frames: np.ndarray, path: str, fps: int = 8) -> str:
     n, f = frames.shape[:2]
     pil_frames = [Image.fromarray(np.concatenate(
         [_to_uint8(frames[v, fi]) for v in range(n)], axis=1)) for fi in range(f)]
+    pil_frames[0].save(path, save_all=True, append_images=pil_frames[1:],
+                       duration=int(1000 / fps), loop=0)
+    return path
+
+
+def save_videos_grid(videos: np.ndarray, path: str, n_rows: int = 4, fps: int = 8) -> str:
+    """(B, F, H, W, 3) videos in [0, 1] → one GIF of an ``n_rows`` grid."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    b, f = videos.shape[:2]
+    cols = int(np.ceil(b / n_rows))
+    blank = np.zeros_like(_to_uint8(videos[0, 0]))
+    pil_frames = []
+    for fi in range(f):
+        rows = [np.concatenate([_to_uint8(videos[r * cols + c, fi]) if r * cols + c < b
+                                else blank for c in range(cols)], axis=1)
+                for r in range(n_rows)]
+        pil_frames.append(Image.fromarray(np.concatenate(rows, axis=0)))
     pil_frames[0].save(path, save_all=True, append_images=pil_frames[1:],
                        duration=int(1000 / fps), loop=0)
     return path

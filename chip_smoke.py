@@ -16,15 +16,23 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    launch counter set to 0 just before and read just after;
 4. profile and reference: one full-width UNet forward on the CFG batch
    under torch.profiler (device time by kernel family), and one forward
-   through the kernels against the same forward through the plain versions.
+   through the kernels against the same forward through the plain versions;
+5. train: the trainer CLI at full width (4 views x 16 frames, 256x256,
+   batch 1, gradient checkpointing, random weights from a seed) for 3 steps
+   on a synthetic manifest, launch counters zeroed just before and read just
+   after, then one loss + backward through the kernels against the same
+   step through the plain versions.
 
-The line before the last is a JSON object with one row per kernel and
-main-path shape; the last line is ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+Phase 2 also checks the forward kernels at the trainer's shapes and the
+backward kernels (D, E) against their plain backward versions. The line
+before the last is a JSON object with one row per kernel and main-path
+shape; the last line is ``{"ok": true, "device": {...}}``. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -39,7 +47,19 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 
 # per UNet forward at full width (SD1.5 topology, 4 views x 16 frames, 256^2)
-PER_FORWARD = {"flash_fwd": 40, "packed_attn": 20, "geglu": 37}
+# on the CFG batch of sampling; no backward kernel runs there
+PER_FORWARD = {"flash_fwd": 40, "packed_attn": 20, "geglu": 37, "flash_bwd_dq": 0,
+               "flash_bwd_dkv": 0, "packed_attn_bwd": 0}
+# per train step (one video: batch 16 frames per view-major UNet call) with
+# gradient checkpointing: every kernel site's forward runs twice (forward and
+# the block's recompute in backward); L1 flash sites fall under the 512 MiB
+# logits line at batch 16 and take the plain path. D: the first L0 attn1 of
+# down_blocks.0.attentions.0 needs no gradient at all (its q/k/v come from
+# frozen weights and the latents), and its I2V branch needs dq only (k/v are
+# frame 0's frozen projections), so 20 L0 sites give 19 dq and 18 dk/dv
+# launches; E runs at all 20 temporal sites.
+PER_TRAIN_STEP = {"flash_fwd": 40, "packed_attn": 40, "geglu": 74, "flash_bwd_dq": 19,
+                  "flash_bwd_dkv": 18, "packed_attn_bwd": 20}
 SOURCES = {
     "flash_fwd": ("animate3d_tpu_torch/csrc/flash_fwd.cu",
                   "animate3d_tpu/ops/attention.py:234"),
@@ -47,6 +67,10 @@ SOURCES = {
                     "animate3d_tpu/ops/attention.py:755"),
     "geglu": ("animate3d_tpu_torch/csrc/geglu.cu",
               "animate3d_tpu/ops/geglu.py:64"),
+    "flash_bwd": ("animate3d_tpu_torch/csrc/flash_bwd.cu",
+                  "animate3d_tpu/ops/attention.py:400,436"),
+    "packed_attn_bwd": ("animate3d_tpu_torch/csrc/packed_attn_bwd.cu",
+                        "animate3d_tpu/ops/attention.py:788"),
 }
 
 
@@ -134,7 +158,7 @@ def _flash_case(label, b, s, c, heads, kv_group, gen):
     flops = 4.0 * b * heads * s * s * d
     nbytes = 2.0 * (2 * b * s * c + 2 * (b // kv_group) * s * c) + 4.0 * b * heads * s
     bound, by = _bound_ms(flops, nbytes)
-    return dict(name="flash_fwd", shape=label, key=("flash_fwd", (b, s, s, c, kv_group)),
+    return dict(name="flash_fwd", shape=label, keys=[("flash_fwd", (b, s, s, c, kv_group))],
                 max_abs_err=err, tol=tol, rel=rel, lse_err=lse_err, ok=ok, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
@@ -157,7 +181,7 @@ def _packed_case(label, b, s, c, heads, gen):
     lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, scale=scale), 20)
     bound, by = _bound_ms(4.0 * b * heads * s * s * d, 2.0 * 4 * b * s * c)
-    return dict(name="packed_attn", shape=label, key=("packed_attn", (b, s, c)),
+    return dict(name="packed_attn", shape=label, keys=[("packed_attn", (b, s, c))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
@@ -188,7 +212,85 @@ def _geglu_case(label, m, c, inner, gen):
     lib_ms = _time_ms(library, 10)
     nbytes = 2.0 * (2 * m * c + 3 * inner * c + 2 * inner + c)
     bound, by = _bound_ms(6.0 * m * c * inner, nbytes)
-    return dict(name="geglu", shape=label, key=("geglu", (m, c, inner)),
+    return dict(name="geglu", shape=label, keys=[("geglu", (m, c, inner))],
+                max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def _sdpa_bwd_ms(q, k, v, do, heads, scale, kv_group, iters):
+    """The backward alone of scaled_dot_product_attention on the same
+    inputs (K/V repeated over the kv_group), timed as a yardstick."""
+    F = torch.nn.functional
+
+    def split(x, reps=1):
+        b, s, c = x.shape
+        x = x.reshape(b, s, heads, c // heads).transpose(1, 2)
+        return x.repeat_interleave(reps, 0).contiguous().requires_grad_()
+
+    qh, kh, vh = split(q), split(k, kv_group), split(v, kv_group)
+    out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    doh = split(do).detach()
+    return _time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                    iters)
+
+
+def _agree_all(outs, refs):
+    """_agree over several outputs: (worst max |diff|, its limit, worst
+    relative L2, all ok)."""
+    res = [_agree(o, r) for o, r in zip(outs, refs)]
+    worst = max(res, key=lambda x: x[0] / max(x[1], 1e-30))
+    return worst[0], worst[1], max(x[2] for x in res), all(x[3] for x in res)
+
+
+def _flash_bwd_case(label, b, s, c, heads, kv_group, gen):
+    """Kernel D (dq and dk/dv kernels together) on the forward's own out
+    and lse against the plain backward on the same bf16 inputs."""
+    from animate3d_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    q = torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b // kv_group, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b // kv_group, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    d = c // heads
+    scale = d ** -0.5
+    out, lse = A.flash_attention(q, k, v, heads, scale, kv_group)
+    args = (q, k, v, out, lse, do, heads, scale, kv_group)
+    grads = A.flash_attention_bwd(*args)
+    refs = A._flash_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err, tol, rel, ok = _agree_all(grads, refs)
+    ms = _time_ms(lambda: A.flash_attention_bwd(*args), 5)
+    plain_ms = _time_ms(lambda: A._flash_bwd_plain(*args), 2)
+    lib_ms = _sdpa_bwd_ms(q, k, v, do, heads, scale, kv_group, 5)
+    flops = 10.0 * b * heads * s * s * d  # S, dP, dV, dK, dQ
+    nbytes = 2.0 * (4 * b * s * c + 4 * (b // kv_group) * s * c) + 4.0 * b * heads * s
+    bound, by = _bound_ms(flops, nbytes)
+    key = (b, s, s, c, kv_group)
+    return dict(name="flash_bwd", shape=label,
+                keys=[("flash_bwd_dq", key), ("flash_bwd_dkv", key)],
+                max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def _packed_bwd_case(label, b, s, c, heads, gen):
+    from animate3d_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    q, k, v, g = (torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    d = c // heads
+    scale = d ** -0.5
+    args = (q, k, v, g, heads, scale)
+    grads = A.packed_attention_bwd(*args)
+    refs = A._packed_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err, tol, rel, ok = _agree_all(grads, refs)
+    ms = _time_ms(lambda: A.packed_attention_bwd(*args), 20)
+    plain_ms = _time_ms(lambda: A._packed_bwd_plain(*args), 5)
+    lib_ms = _sdpa_bwd_ms(q, k, v, g, heads, scale, 1, 20)
+    bound, by = _bound_ms(10.0 * b * heads * s * s * d, 2.0 * 7 * b * s * c)
+    return dict(name="packed_attn_bwd", shape=label, keys=[("packed_attn_bwd", (b, s, c))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
@@ -212,9 +314,26 @@ def kernel_phase() -> list:
         _geglu_case("L2 M=8192 C=1280 I=5120", 8192, 1280, 5120, gen),
         _geglu_case("L3 M=2048 C=1280 I=5120", 2048, 1280, 5120, gen),
     ]
+    # the trainer's shapes: one video, 4 views x 16 frames = 64 frames
+    rows += [
+        _flash_case("train L0 cross-view (16, 4096, 320) h8", 16, 4096, 320, 8, 1, gen),
+        _flash_case("train L0 i2v frame-0 K/V (16, 4096, 320) h8 kv_group 16",
+                    16, 4096, 320, 8, 16, gen),
+        _packed_case("train L0 temporal (4096, 16, 320) h8", 4096, 16, 320, 8, gen),
+        _packed_case("train L1 temporal (1024, 16, 640) h8", 1024, 16, 640, 8, gen),
+        _geglu_case("train L0 M=65536 C=320 I=1280", 65536, 320, 1280, gen),
+        _geglu_case("train L1 M=16384 C=640 I=2560", 16384, 640, 2560, gen),
+        _geglu_case("train L2 M=4096 C=1280 I=5120", 4096, 1280, 5120, gen),
+        _geglu_case("train L3 M=1024 C=1280 I=5120", 1024, 1280, 5120, gen),
+        _flash_bwd_case("train L0 cross-view (16, 4096, 320) h8", 16, 4096, 320, 8, 1, gen),
+        _flash_bwd_case("train L0 i2v frame-0 K/V (16, 4096, 320) h8 kv_group 16",
+                        16, 4096, 320, 8, 16, gen),
+        _packed_bwd_case("train L0 temporal (4096, 16, 320) h8", 4096, 16, 320, 8, gen),
+        _packed_bwd_case("train L1 temporal (1024, 16, 640) h8", 1024, 16, 640, 8, gen),
+    ]
     for r in rows:
         extra = f" lse_err {r['lse_err']:.3e}" if "lse_err" in r else ""
-        print(f"[kernel] {r['name']:<11} {r['shape']:<52} max|d| {r['max_abs_err']:.3e} "
+        print(f"[kernel] {r['name']:<15} {r['shape']:<58} max|d| {r['max_abs_err']:.3e} "
               f"(tol {r['tol']:.3e}) rel L2 {r['rel']:.3e} (tol {REL_L2_TOL:.0e}){extra} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
               f"({r['bound_by']}) {'ok' if r['ok'] else 'FAIL'}")
@@ -269,6 +388,9 @@ def _family(name: str) -> str:
     for key, fam in (("flash_fwd_kernel", "kernel A flash_fwd"),
                      ("packed_attn_kernel", "kernel B packed_attn"),
                      ("geglu_gemm_kernel", "kernel C geglu"),
+                     ("flash_bwd_dq_kernel", "kernel D flash_bwd dq"),
+                     ("flash_bwd_dkv_kernel", "kernel D flash_bwd dk/dv"),
+                     ("packed_attn_bwd_kernel", "kernel E packed_attn_bwd"),
                      ("softmax", "plain attention softmax"),
                      ("conv", "convolution (cuDNN)"), ("xmma_fprop", "convolution (cuDNN)"),
                      ("implicit", "convolution (cuDNN)"),
@@ -278,6 +400,28 @@ def _family(name: str) -> str:
         if key in n:
             return fam
     return "elementwise / copy / other"
+
+
+def _print_profile(tag: str, what: str, prof, wall_ms: float) -> None:
+    """Device time by kernel family, the idle share of the host-clock wall
+    and the top kernels of one profiled window."""
+    fams: dict = {}
+    kernels = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            fams[_family(e.key)] = fams.get(_family(e.key), 0.0) + dev_us / 1e3
+            kernels.append((dev_us / 1e3, e.count, e.key))
+    busy = sum(fams.values())
+    if not busy:
+        print(f"{tag} the profiler recorded no device time: not measured")
+        return
+    print(f"{tag} {what}: wall {wall_ms:.2f} ms (profiler on), device busy {busy:.2f} ms, "
+          f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for fam, ms in sorted(fams.items(), key=lambda x: -x[1]):
+        print(f"{tag} {fam:<28} {ms:9.3f} ms  {ms / busy:6.1%}")
+    for ms, count, name in sorted(kernels, reverse=True)[:8]:
+        print(f"{tag} top kernel {ms:9.3f} ms x{count:<4} {name[:90]}")
 
 
 def reference_phase() -> dict:
@@ -309,24 +453,7 @@ def reference_phase() -> dict:
             unet(lat, t, text, cam, img)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    fams: dict = {}
-    kernels = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            fams[_family(e.key)] = fams.get(_family(e.key), 0.0) + dev_us / 1e3
-            kernels.append((dev_us / 1e3, e.count, e.key))
-    busy = sum(fams.values())
-    if busy:
-        print(f"[profile] one UNet forward, CFG batch 128 frames: wall {wall_ms:.2f} ms "
-              f"(profiler on), device busy {busy:.2f} ms, idle share "
-              f"{max(0.0, 1 - busy / wall_ms):.3f}")
-        for fam, ms in sorted(fams.items(), key=lambda x: -x[1]):
-            print(f"[profile] {fam:<28} {ms:9.3f} ms  {ms / busy:6.1%}")
-        for ms, count, name in sorted(kernels, reverse=True)[:8]:
-            print(f"[profile] top kernel {ms:9.3f} ms x{count:<4} {name[:90]}")
-    else:
-        print("[profile] the profiler recorded no device time: not measured")
+    _print_profile("[profile]", "one UNet forward, CFG batch 128 frames", prof, wall_ms)
 
     with torch.inference_mode():
         _build.reset_launches()
@@ -380,14 +507,203 @@ def edge_phase() -> bool:
         args = (rnd(m, c), rnd(2 * inner, c, std=c ** -0.5), rnd(2 * inner, std=0.1),
                 rnd(c, inner, std=inner ** -0.5), rnd(c, std=0.1))
         cases.append((f"geglu M={m} C={c} I={inner}", G.geglu(*args), G._geglu_plain(*args)))
+
+    def flash_bwd(label, q, k, v, heads, scale, kv_group):
+        out, lse = A.flash_attention(q, k, v, heads, scale, kv_group)
+        args = (q, k, v, out, lse, rnd(*q.shape), heads, scale, kv_group)
+        cases.append((label, A.flash_attention_bwd(*args), A._flash_bwd_plain(*args)))
+
+    flash_bwd("flash bwd d80 (2, 1024, 640) h8", rnd(2, 1024, 640), rnd(2, 1024, 640),
+              rnd(2, 1024, 640), 8, 80 ** -0.5, 1)
+    flash_bwd("flash bwd ragged Sq=1000 Sk=777 h2 d40", rnd(3, 1000, 80), rnd(3, 777, 80),
+              rnd(3, 777, 80), 2, 0.2, 1)
+    big = rnd(4, 130, 160)
+    flash_bwd("flash bwd strided q, Sk=197 h1 d80 kv_group 2", big[:, :, :80],
+              rnd(2, 197, 80), rnd(2, 197, 80), 1, 0.1, 2)
+    flash_bwd("flash bwd kv_group 2 (4, 512, 320) h8", rnd(4, 512, 320), rnd(2, 512, 320),
+              rnd(2, 512, 320), 8, 40 ** -0.5, 2)
+    for b, s_, c, h in ((13, 8, 80, 2), (7, 32, 640, 8)):
+        args = (rnd(b, s_, c), rnd(b, s_, c), rnd(b, s_, c), rnd(b, s_, c), h, 0.15)
+        cases.append((f"packed bwd B={b} S={s_} C={c} h{h}", A.packed_attention_bwd(*args),
+                      A._packed_bwd_plain(*args)))
     torch.cuda.synchronize()
     ok = True
     for label, out, ref in cases:
-        err, tol, rel, good = _agree(out, ref)
+        if isinstance(out, tuple):
+            err, tol, rel, good = _agree_all(out, ref)
+        else:
+            err, tol, rel, good = _agree(out, ref)
         ok &= good
-        print(f"[edge] {label:<44} max|d| {err:.3e} (tol {tol:.3e}) rel L2 {rel:.3e} "
+        print(f"[edge] {label:<48} max|d| {err:.3e} (tol {tol:.3e}) rel L2 {rel:.3e} "
               f"{'ok' if good else 'FAIL'}")
     return ok
+
+
+TRAIN_STEPS = 3
+
+
+def _train_workspace(tmp: str) -> str:
+    """A synthetic manifest (4 per-view directories of 16 PNG frames at
+    256^2) and the trainer config: configs/training/train.yaml's values
+    with gradient checkpointing, 3 steps, random weights from seed 0."""
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    views = []
+    for v in range(4):
+        d = os.path.join(tmp, "vids", f"view{v}")
+        os.makedirs(d)
+        for fi in range(16):
+            Image.fromarray(rng.integers(0, 255, (256, 256, 3), dtype=np.uint8)).save(
+                os.path.join(d, f"{fi:02d}.png"))
+        views.append(f"view{v}")
+    with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+        json.dump([{"videos": views, "caption": "a toy"}], fh)
+    cfg = os.path.join(tmp, "train.yaml")
+    with open(cfg, "w") as fh:
+        fh.write(f"""output_dir: {tmp}/out
+model_size: full
+num_views: 4
+video_length: 16
+sample_size: 256
+cfg_random_null_text_ratio: 0.1
+train_data:
+  manifest_path: {tmp}/manifest.json
+  video_root: {tmp}/vids
+  total_frames: 16
+learning_rate: 1.0e-4
+train_batch_size: 1
+max_grad_norm: 1.0
+max_train_steps: {TRAIN_STEPS}
+checkpointing_steps: 1000
+gradient_checkpointing: true
+log_every_n_steps: 1
+global_seed: 0
+""")
+    return cfg
+
+
+def train_phase(tmp: str) -> dict:
+    """The trainer CLI at full width for TRAIN_STEPS steps, launch counters
+    zeroed just before and read just after; then the trained module against
+    a fresh build from the same seed: frozen parameters bit-identical,
+    trainable masters moved."""
+    from animate3d_tpu_torch.cli.train_mvvdm import main as train_main
+    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.ops import _build
+
+    cfg = _train_workspace(tmp)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = train_main(["--config", cfg])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = _build.launch_totals()
+    per_shape = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in res["metrics"]]
+    step_seconds = res["step_seconds"][1:]  # after the first (warm-up) step
+    expected = {k: n * TRAIN_STEPS for k, n in PER_TRAIN_STEP.items()}
+
+    unet, masters = res["unet"], res["optimizer"].masters
+    fresh, _ = build_models("full", 4, "cuda", seed=0, train=True)
+    params = dict(unet.named_parameters())
+    frozen_same = moved = 0
+    for name, p0 in fresh.named_parameters():
+        if name in masters:
+            moved += int(not torch.equal(masters[name], p0.detach()))
+        else:
+            frozen_same += int(torch.equal(params[name], p0.detach().to(params[name].dtype)))
+    n_frozen = len(params) - len(masters)
+    del fresh, unet, res
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "out")
+    written = all(os.path.exists(os.path.join(out, d, f"step_{TRAIN_STEPS}", "checkpoint.pt"))
+                  for d in ("checkpoints", "motion_modules"))
+    step_s = float(np.mean(step_seconds))
+    ok = (len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and totals == expected
+          and frozen_same == n_frozen and moved >= 0.9 * len(masters) and written)
+    print(f"[train] full width 256x256, 4 views x 16 frames, batch 1, gradient checkpointing, "
+          f"{TRAIN_STEPS} steps: wall {wall:.2f} s, step seconds "
+          + ", ".join(f"{t:.4f}" for t in step_seconds)
+          + f"; peak memory {peak_gb:.2f} GiB; losses "
+          + ", ".join(f"{x:.5f}" for x in losses))
+    print(f"[train] launches {totals} (expected {expected}: {PER_TRAIN_STEP} per step)")
+    print(f"[train] frozen parameters bit-identical {frozen_same}/{n_frozen}; trainable "
+          f"masters moved {moved}/{len(masters)}; checkpoints/step_{TRAIN_STEPS} and "
+          f"motion_modules/step_{TRAIN_STEPS} written {written}")
+    return dict(ok=ok, per_shape=per_shape, step_s=step_s, wall_s=wall, peak_gb=peak_gb)
+
+
+def train_reference_phase() -> dict:
+    """One full-width loss + backward on a fixed batch with fixed draws
+    through the kernels (after one warm-up step, under torch.profiler:
+    device time by kernel family), against the same step with every op on
+    its plain version. Tolerances: the loss within 1e-2 relative, the concatenated
+    trainable gradient within 5e-2 relative L2: the kernels' bf16 rounding
+    (f32 sums in another order, so a flipped rounding of a bf16 P, dS or
+    GEGLU hidden here and there) carried through the 53 blocks forward and
+    back again, as for the forward reference."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animate3d_tpu_torch.models.diffusion import DDIMScheduler
+    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.ops import _build, routing
+    from animate3d_tpu_torch.pipelines.train_mvvdm import (
+        MVVDMTrainConfig,
+        TrainBatch,
+        cast_frozen_bf16,
+        loss_fn,
+    )
+    from animate3d_tpu_torch.utils.camera import get_camera
+
+    unet, _ = build_models("full", 4, "cuda", seed=0, train=True, gradient_checkpointing=True)
+    masters = cast_frozen_bf16(unet)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = TrainBatch(
+        latents=torch.randn((4, 16, 32, 32, 4), generator=gen, device="cuda"),
+        text_ctx=0.5 * torch.randn((4, 77, 768), generator=gen, device="cuda"),
+        null_text_ctx=torch.zeros((4, 77, 768), device="cuda"),
+        camera=torch.as_tensor(get_camera(4), device="cuda"),
+        image_embeds=torch.randn((4, 1024), generator=gen, device="cuda"))
+    t = torch.tensor([501], device="cuda")
+    noise = torch.randn((4, 15, 32, 32, 4), generator=gen, device="cuda")
+    drop = torch.tensor([False], device="cuda")
+    tcfg, sched = MVVDMTrainConfig(), DDIMScheduler(device="cuda")
+    params = dict(unet.named_parameters())
+
+    def step():
+        _build.reset_launches()
+        loss = loss_fn(unet, batch, t, noise, drop, tcfg, sched)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = torch.cat([params[n].grad.float().reshape(-1) for n in masters])
+        for n in masters:
+            params[n].grad = None
+        return float(loss.detach()), grads, _build.launch_totals()
+
+    step()  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss_k, grad_k, counts_k = step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _print_profile("[train-profile]", "one loss + backward at full width (64 frames, "
+                   "gradient checkpointing)", prof, wall_ms)
+    with routing.plain_ops():
+        loss_p, grad_p, counts_p = step()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rel = float((grad_k - grad_p).norm() / grad_p.norm())
+    ok = (loss_rel <= 1e-2 and rel <= 5e-2 and bool(torch.isfinite(grad_k).all())
+          and counts_k == PER_TRAIN_STEP and not any(counts_p.values()))
+    print(f"[train-reference] full-width loss + backward, kernels vs plain ops: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (relative {loss_rel:.3e}, tol 1e-2); trainable "
+          f"gradient ({grad_k.numel()} values) relative L2 {rel:.3e} (tol 5e-2), norms "
+          f"{float(grad_k.norm()):.4e} vs {float(grad_p.norm()):.4e}; launches through the "
+          f"kernels {counts_k} (expected {PER_TRAIN_STEP}), through the plain ops {counts_p}")
+    del unet, grad_k, grad_p
+    torch.cuda.empty_cache()
+    return dict(ok=ok, rel=rel, loss_rel=loss_rel)
 
 
 def main() -> int:
@@ -404,7 +720,8 @@ def main() -> int:
     if not e2e["ok"]:
         print("chip_smoke: the end-to-end run failed its checks", file=sys.stderr)
         return 1
-    missing = set(e2e["per_shape"]) - {r["key"] for r in rows}
+    checked = {key for r in rows for key in r["keys"]}
+    missing = set(e2e["per_shape"]) - checked
     if missing:
         print(f"chip_smoke: main-path kernel shapes not checked: {missing}", file=sys.stderr)
         return 1
@@ -412,11 +729,29 @@ def main() -> int:
     if not ref["ok"]:
         print("chip_smoke: kernels disagree with plain ops end to end", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(tmp)
+    if not train["ok"]:
+        print("chip_smoke: the full-width train run failed its checks", file=sys.stderr)
+        return 1
+    missing = set(train["per_shape"]) - checked
+    if missing:
+        print(f"chip_smoke: train-path kernel shapes not checked: {missing}", file=sys.stderr)
+        return 1
+    train_ref = train_reference_phase()
+    if not train_ref["ok"]:
+        print("chip_smoke: the train step through the kernels disagrees with plain ops",
+              file=sys.stderr)
+        return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
+    print(f"[summary] seconds per train step (full width, gradient checkpointing, mean of "
+          f"the steps after the first): {train['step_s']:.4f}; peak memory "
+          f"{train['peak_gb']:.2f} GiB; card {env['smi']}")
+    launches = collections.Counter(e2e["per_shape"]) + collections.Counter(train["per_shape"])
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",
                     source=SOURCES[r["name"]][0], replaces=SOURCES[r["name"]][1],
-                    launches=e2e["per_shape"].get(r["key"], 0),
+                    launches=sum(launches[key] for key in r["keys"]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"]) for r in rows]

@@ -181,3 +181,147 @@ def test_kernels_match_plain_on_cuda():
     x, w1, b1, w2, b2 = rnd(300, 320), rnd(2560, 320), rnd(2560), rnd(320, 1280), rnd(320)
     out, ref = TG.geglu(x, w1, b1, w2, b2), TG._geglu_plain(x, w1, b1, w2, b2)
     assert_agree(out, ref)
+
+
+def _to_bhsd(x, h):
+    b, s, c = x.shape
+    return jnp.asarray(x.reshape(b, s, h, c // h).transpose(0, 2, 1, 3))
+
+
+def _to_merged(x):
+    b, h, s, d = x.shape
+    return np.asarray(x).transpose(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+@pytest.mark.parametrize("d,kv_group", [(40, 1), (80, 1), (40, 2)])
+def test_flash_bwd_plain_matches_pallas_vjp(d, kv_group):
+    """The plain backward of kernel D against jax.vjp of _flash_attention,
+    whose VJP runs the Pallas dq / dkv kernels (interpret mode), on JAX's
+    own out and lse. With kv_group > 1 the JAX side attends to K/V repeated
+    over the group, so its VJP sums dk / dv over the group. Sk = 512 (the
+    kernels' K block), f32 at "highest" matmul precision; atol 1e-5 / rtol
+    1e-4 covers f32 sums in another order and exp vs exp2."""
+    rng = np.random.default_rng(10 + d + kv_group)
+    b, s, h = 2, 512, 2
+    q = rng.normal(size=(b, s, h * d)).astype(np.float32)
+    k, v = (rng.normal(size=(b // kv_group, s, h * d)).astype(np.float32) for _ in range(2))
+    g = rng.normal(size=(b, s, h * d)).astype(np.float32)
+    scale = d ** -0.5
+
+    def fwd(qj, kj, vj):
+        rep = (lambda x: jnp.repeat(x, kv_group, axis=0)) if kv_group > 1 else (lambda x: x)
+        return JA._flash_attention(qj, rep(kj), rep(vj), scale)
+
+    with jax.default_matmul_precision("highest"):
+        qj, kj, vj = _to_bhsd(q, h), _to_bhsd(k, h), _to_bhsd(v, h)
+        kr, vr = (jnp.repeat(x, kv_group, axis=0) for x in (kj, vj))
+        out, lse = JA._flash_attention_fwd_impl(qj, kr, vr, scale)
+        _, vjp = jax.vjp(fwd, qj, kj, vj)
+        ref = [_to_merged(x) for x in vjp(_to_bhsd(g, h))]
+    got = TA._flash_bwd_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              torch.from_numpy(_to_merged(out)),
+                              torch.from_numpy(np.array(lse)), torch.from_numpy(g),
+                              h, scale, kv_group)
+    for x, r in zip(got, ref):
+        np.testing.assert_allclose(x.numpy(), r, atol=1e-5, rtol=1e-4)
+
+
+def test_packed_bwd_plain_matches_pallas_vjp():
+    """The plain backward of kernel E against jax.vjp of
+    packed_temporal_flash_padded (Pallas forward and backward kernels in
+    interpret mode), heads lane-padded to 128 on the JAX side; f32 at
+    "highest" precision, atol 1e-5 / rtol 1e-4."""
+    rng = np.random.default_rng(4)
+    b, s, h, d = 16, 16, 2, 40
+    (q, qp), (k, kp), (v, vp), (g, gp) = (_merged_and_padded(rng, b, s, h, d)
+                                          for _ in range(4))
+    scale = d ** -0.5
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda *a: JA.packed_temporal_flash_padded(*a, h, scale), qp, kp, vp)
+        ref = [np.asarray(x).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
+               for x in vjp(gp)]
+    got = TA._packed_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, g)), h, scale)
+    for x, r in zip(got, ref):
+        np.testing.assert_allclose(x.numpy(), r, atol=1e-5, rtol=1e-4)
+
+
+def test_geglu_fn_grads_match_pallas_vjp():
+    """GegluFn (kernel C's plain version forward, autograd of
+    _geglu_reference backward) against jax.vjp of _geglu_fused (Pallas
+    forward in interpret mode, XLA VJP of the reference); f32, atol 1e-5
+    relative to each gradient's largest magnitude."""
+    rng = np.random.default_rng(5)
+    m, c, inner = 256, 64, 640
+    x = rng.normal(size=(m, c)).astype(np.float32)
+    w1 = (rng.normal(size=(c, 2 * inner)) * 0.05).astype(np.float32)
+    b1 = (rng.normal(size=(2 * inner,)) * 0.05).astype(np.float32)
+    w2 = (rng.normal(size=(inner, c)) * 0.05).astype(np.float32)
+    b2 = (rng.normal(size=(c,)) * 0.05).astype(np.float32)
+    gy = rng.normal(size=(m, c)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda *a: JG._geglu_fused(jnp.float32, *a),
+                         *(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+        ref = [np.asarray(r) for r in vjp(jnp.asarray(gy))]
+    ref[1], ref[3] = ref[1].T, ref[3].T  # torch Linear layout
+    args = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_()
+            for a in (x, w1.T, b1, w2.T, b2)]
+    y = TG.GegluFn.apply(*args)
+    got = torch.autograd.grad(y, args, torch.from_numpy(gy))
+    for x_, r in zip(got, ref):
+        np.testing.assert_allclose(x_.numpy(), r, atol=1e-5 * np.abs(r).max(), rtol=0)
+
+
+@pytest.mark.parametrize("kv_group,need", [(1, "qkv"), (2, "qkv"), (2, "q")])
+def test_flash_fn_plain_grads_match_autograd(kv_group, need):
+    """FlashAttentionFn on its plain route (CPU) gives autograd's gradients
+    of the plain attention, and only those its inputs need."""
+    torch.manual_seed(0)
+    b, h, d = 4, 2, 8
+    q = torch.randn(b, 64, h * d, requires_grad=True)
+    k = torch.randn(b // kv_group, 48, h * d, requires_grad="k" in need)
+    v = torch.randn(b // kv_group, 48, h * d, requires_grad="v" in need)
+    do = torch.randn(b, 64, h * d)
+    out = TA.FlashAttentionFn.apply(q, k, v, h, 0.3, kv_group, False)
+    kr, vr = (x.repeat_interleave(kv_group, 0) for x in (k, v))
+    ref = TA._merge_heads(TA.attention_xla(*(TA._split_heads(x, h) for x in (q, kr, vr)), 0.3))
+    wrt = [x for x in (q, k, v) if x.requires_grad]
+    for x, r in zip(torch.autograd.grad(out, wrt, do), torch.autograd.grad(ref, wrt, do)):
+        torch.testing.assert_close(x, r, atol=1e-5, rtol=1e-5)
+
+
+def test_packed_fn_plain_grads_match_autograd():
+    torch.manual_seed(1)
+    q, k, v = (torch.randn(8, 16, 80, requires_grad=True) for _ in range(3))
+    g = torch.randn(8, 16, 80)
+    out = TA.PackedAttentionFn.apply(q, k, v, 2, 0.2, False)
+    ref = TA._merge_heads(TA.attention_xla(*(TA._split_heads(x, 2) for x in (q, k, v)), 0.2))
+    for x, r in zip(torch.autograd.grad(out, (q, k, v), g),
+                    torch.autograd.grad(ref, (q, k, v), g)):
+        torch.testing.assert_close(x, r, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_on_cuda():
+    """Kernels D and E against their plain backward versions on the card
+    (bf16; 2^-6 of the largest gradient and 1e-2 relative L2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def assert_agree(outs, refs):
+        for out, ref in zip(outs, refs):
+            out, ref = out.float(), ref.float()
+            assert (out - ref).abs().max() <= 2 ** -6 * ref.abs().max()
+            assert (out - ref).norm() <= 1e-2 * ref.norm()
+
+    for kv_group in (1, 4):
+        q, k, v = rnd(4, 1024, 320), rnd(4 // kv_group, 1024, 320), rnd(4 // kv_group, 1024, 320)
+        out, lse = TA.flash_attention(q, k, v, 8, 40 ** -0.5, kv_group)
+        args = (q, k, v, out, lse, rnd(4, 1024, 320), 8, 40 ** -0.5, kv_group)
+        assert_agree(TA.flash_attention_bwd(*args), TA._flash_bwd_plain(*args))
+    args = (rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640),
+            8, 80 ** -0.5)
+    assert_agree(TA.packed_attention_bwd(*args), TA._packed_bwd_plain(*args))
