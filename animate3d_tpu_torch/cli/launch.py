@@ -1,0 +1,192 @@
+"""Experiment runner for the 4D stage: the port of ``animate3d_tpu/cli/launch.py``
+for stage-1 motion reconstruction.
+
+    python -m animate3d_tpu_torch.cli.launch --config configs/animate3d/motion_recon_frame_16.yaml \\
+        --train system.prompt_processor.prompt="a butterfly" data.image_root=<frames> \\
+        system.geometry.geometry_convert_from=<asset.ply> [--device cpu]
+
+``--train`` optimises the deformation field on the whole-video batch
+(uploaded once), logs ``metrics.jsonl``, writes ``ckpts/step_N``, then runs
+the ``--test`` pass: the four fixed views at ``data.eval_height/width``
+(default ``data.height/width``) as RGBA pngs and, with
+``system.save_gaussian_trajectory``, per-frame ``.npy`` trajectories.
+Runs on ``cuda`` unless ``--device cpu``; raises when CUDA is absent. The
+path is float32 throughout: on CUDA, ``resolve_device`` turns TF32 off for
+matmuls and convolutions (the K-planes and MLP products are f32 in the
+reference). Not ported yet: ``--validate``, ``--export``, dp meshes
+(``trainer.mesh_dp``), mp4 writing, SSIM / LPIPS, the testset camera grid,
+and the refine stage (guidance, ``system.weights``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def build_system(cfg, seed: int = 0, device=None):
+    """``system_type`` through the registry."""
+    import animate3d_tpu_torch.systems.animate3d  # noqa: F401 — registers the system
+    from animate3d_tpu_torch.core.registry import find
+
+    cls = find(cfg.system_type or "gaussian-splatting-animate3d-system")
+    return cls.from_config(cfg, seed=seed, device=device)
+
+
+def _validation_render(cfg, system, step: int) -> None:
+    """The fixed views at the training size as a multi-view GIF."""
+    from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
+    from animate3d_tpu_torch.utils.saving import export_to_gif_mv
+
+    n_frame = system.cfg.n_frame
+    cams = fixed_view_cameras(height=cfg.data.get("height", 256),
+                              width=cfg.data.get("width", 256), total_frame=n_frame)
+    out = system.render(gs_cameras_from_batch(cams, device=system.device), cams["timestamps"])
+    rgb = out.rgb.cpu().numpy()
+    export_to_gif_mv(rgb.reshape(-1, n_frame, *rgb.shape[1:]),
+                     os.path.join(cfg.trial_dir, "save", "val", f"it{step}.gif"))
+
+
+def run_train(cfg, system) -> dict:
+    from animate3d_tpu_torch.core.checkpoint import save_checkpoint
+    from animate3d_tpu_torch.core.registry import find
+    from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
+    import animate3d_tpu_torch.data.multi_image  # noqa: F401 — registers the datamodule
+    from animate3d_tpu_torch.utils.logging import MetricsLogger
+
+    if int(cfg.trainer.get("mesh_dp", 0) or 0) > 1:
+        raise NotImplementedError("trainer.mesh_dp (data-parallel recon) is not ported yet")
+    dataset = find(cfg.data_type or "simple-multi-image-datamodule").from_config(
+        cfg.data, seed=cfg.seed)
+    dev = system.device
+    raw = dataset.batch(0)
+    batch = {  # the whole video, uploaded once
+        "gs_cameras": gs_cameras_from_batch(raw, device=dev),
+        "timestamps": np.asarray(raw["timestamps"]),
+        "rgb": torch.as_tensor(raw["rgb"], device=dev),
+        "mask": torch.as_tensor(raw["mask"].astype(np.float32), device=dev),
+    }
+    max_steps = cfg.trainer.get("max_steps", 800)
+    ckpt_every = cfg.checkpoint.get("every_n_train_steps", max_steps)
+    val_every = cfg.trainer.get("val_check_interval", 0)
+    log_every = cfg.trainer.get("log_every_n_steps", 50)
+    ckpt_dir = os.path.join(cfg.trial_dir, "ckpts")
+    logger = MetricsLogger(os.path.join(cfg.trial_dir, "metrics.jsonl"))
+    pending, logged = [], []
+    t0 = time.perf_counter()
+
+    def flush() -> None:
+        nonlocal t0
+        if not pending:
+            return
+        values = [(s, {k: float(v) for k, v in m.items()}) for s, m in pending]  # syncs
+        window = (time.perf_counter() - t0) / len(pending)
+        for s, m in values:
+            logger.log(s, {**m, "sec_per_step": window})
+            logged.append({"step": s, **m, "sec_per_step": window})
+        msg = " ".join(f"{k}={v:.5f}" for k, v in values[-1][1].items())
+        print(f"[{values[-1][0]}/{max_steps}] {msg} ({window:.3f}s/it avg)")
+        pending.clear()
+        t0 = time.perf_counter()
+
+    for step in range(max_steps):
+        pending.append((step, system.step(batch)))
+        if step % log_every == 0 or step + 1 == max_steps:
+            flush()
+        if val_every and (step + 1) % val_every == 0 and step + 1 < max_steps:
+            _validation_render(cfg, system, step + 1)
+        if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
+            save_checkpoint(ckpt_dir, step + 1, {"params": system.field.state_dict(),
+                                                 "opt_state": system.opt.state_dict(),
+                                                 "step": step + 1})
+    flush()
+    print(f"[train] done; checkpoints in {ckpt_dir}")
+    return {"metrics": logged}
+
+
+def _restore_for_eval(cfg, system, tag: str) -> None:
+    from animate3d_tpu_torch.core.checkpoint import find_latest_checkpoint, restore_checkpoint
+
+    latest = cfg.resume or find_latest_checkpoint(os.path.join(cfg.trial_dir, "ckpts"))
+    if latest:
+        system.field.load_state_dict(restore_checkpoint(latest)["params"])
+        print(f"[{tag}] restored {latest}")
+
+
+def _eval_renderer_cfg(system, height: int, width: int):
+    """The evaluation size: the rasterizer sizes from the renderer config, not
+    from the cameras. (The port's binning is exact, so the JAX package's
+    ``exact_test_binning`` switch has nothing to turn off.)"""
+    return dataclasses.replace(system.cfg.renderer, height=int(height), width=int(width))
+
+
+def run_test(cfg, system) -> dict:
+    from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
+    from animate3d_tpu_torch.utils.saving import Saver
+
+    _restore_for_eval(cfg, system, "test")
+    test_option = cfg.system.get("test_option", "testset")
+    if test_option != "four_view":
+        raise NotImplementedError(f"system.test_option={test_option!r}: only four_view is "
+                                  "ported (the testset camera grid is not yet)")
+    n_frame = system.cfg.n_frame
+    eval_h = cfg.data.get("eval_height", cfg.data.get("height", 256))
+    eval_w = cfg.data.get("eval_width", cfg.data.get("width", 256))
+    cams = fixed_view_cameras(height=eval_h, width=eval_w, total_frame=n_frame)
+    out = system.render(gs_cameras_from_batch(cams, device=system.device), cams["timestamps"],
+                        renderer_cfg=_eval_renderer_cfg(system, eval_h, eval_w))
+    saver = Saver(os.path.join(cfg.trial_dir, "save"))
+    rgb = out.rgb.cpu().numpy()
+    n_views = rgb.shape[0] // n_frame
+    rgb = rgb.reshape(n_views, n_frame, *rgb.shape[1:])
+    alpha = out.alpha.cpu().numpy().reshape(n_views, n_frame, eval_h, eval_w)
+    for v in range(n_views):
+        for f in range(n_frame):
+            saver.rgba(f"images/{v * n_frame + f}.png", rgb[v, f], alpha[v, f])
+    if cfg.system.get("save_gaussian_trajectory", False):
+        means = out.means3d.cpu().numpy().reshape(n_views, n_frame, -1, 3)[0]
+        for f in range(n_frame):
+            saver.trajectory(f"gaussian_trajectory/means3D_frame_{f}.npy", means[f])
+    print(f"[test] wrote {n_views * n_frame} RGBA images of {eval_h}x{eval_w} to "
+          f"{saver.save_dir} (mp4 writing is not ported yet)")
+    return {"rgb": rgb, "alpha": alpha, "overflow": int(out.overflow)}
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description="animate3d_tpu_torch 4D-stage runner")
+    parser.add_argument("--config", required=True)
+    group = parser.add_mutually_exclusive_group(required=True)
+    for flag in ("--train", "--test", "--validate", "--export"):
+        group.add_argument(flag, action="store_true")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default) or cpu; CUDA asked for and absent raises")
+    parser.add_argument("extras", nargs="*", help="dotted config overrides")
+    args = parser.parse_args(argv)
+    if args.validate or args.export:
+        raise NotImplementedError("--validate and --export are not ported yet (ROADMAP.md §1)")
+
+    from animate3d_tpu_torch.core.config import dump_config, load_config
+    from animate3d_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config, cli_args=args.extras)
+    if cfg.system.get("weights"):
+        raise NotImplementedError("system.weights (stage chaining into refine) is not ported yet")
+    os.makedirs(cfg.trial_dir, exist_ok=True)
+    dump_config(os.path.join(cfg.trial_dir, "parsed.yaml"),
+                {"data": cfg.data, "system": cfg.system, "trainer": cfg.trainer})
+    system = build_system(cfg, seed=cfg.seed, device=device)
+    res = {"system": system, "trial_dir": cfg.trial_dir}
+    if args.train:
+        res.update(run_train(cfg, system))
+    res.update(run_test(cfg, system))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -56,7 +56,6 @@ def main(argv=None) -> dict:
     import yaml
 
     from animate3d_tpu_torch.core.checkpoint import (
-        extract_motion_modules,
         find_latest_checkpoint,
         restore_checkpoint,
         save_checkpoint,
@@ -70,6 +69,7 @@ def main(argv=None) -> dict:
         MVVDMTrainConfig,
         TrainBatch,
         cast_frozen_bf16,
+        extract_motion_modules,
         make_optimizer,
         train_step,
     )

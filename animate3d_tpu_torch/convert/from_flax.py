@@ -1,4 +1,4 @@
-"""Carry weights from a flax param tree to the port's diffusers-named state dict.
+"""Carry weights from a flax param tree to the port's state dicts.
 
 The inverse of ``animate3d_tpu/convert/torch_to_flax.py``
 (``translate_torch_path`` / ``convert_leaf``): flax module names that merged
@@ -13,7 +13,8 @@ leaves convert by kind:
 
 Adapter parameters (``to_q_i2v``, ``to_k_ip``, ``to_*_sp``,
 ``alpha_blender.mix_factor``) sit directly under their attention module, as
-in the flax tree. Works for the UNet and the VAE trees.
+in the flax tree. Works for the UNet and the VAE trees;
+:func:`deform_params_from_flax` carries the 4D deformation field's.
 """
 
 from __future__ import annotations
@@ -88,3 +89,17 @@ def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None
     """Load a flax tree into ``module`` strictly (every parameter covered,
     no key left over), casting to the module's dtypes and device."""
     module.load_state_dict(from_flax(params), strict=True)
+
+
+def deform_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``DeformationField``'s params (numpy leaves) → the port's
+    ``DeformationField`` state dict: ``grid_{s}_{p}`` as they are, each
+    Dense ``kernel`` (in, out) transposed to ``weight`` (out, in)."""
+    tree = params["params"] if set(params) == {"params"} else params
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree):
+        arr = np.array(value, dtype=np.float32)
+        if path[-1] == "kernel":
+            path, arr = path[:-1] + ("weight",), arr.T
+        out[".".join(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out

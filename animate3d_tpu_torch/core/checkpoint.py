@@ -1,10 +1,11 @@
-"""Trainer checkpoints as ``torch.save`` files.
+"""Checkpoints as ``torch.save`` files, for the trainer and the 4D stage.
 
 The layout of ``animate3d_tpu/core/checkpoint.py``: ``<dir>/step_N`` per
-save, the latest found by step number, and the motion-modules-only export
-(``extract_motion_modules``). The JAX package writes orbax directories,
-which cannot be read without JAX; here ``step_N`` holds one
-``checkpoint.pt`` with the payload dict (tensors, numbers, nested dicts).
+save, the latest found by step number. The motion-modules-only export
+(``extract_motion_modules``) lives beside the trainer, which owns the
+parameter names. The JAX package writes orbax directories, which cannot
+be read without JAX; here ``step_N`` holds one ``checkpoint.pt`` with the
+payload dict (tensors, numbers, nested dicts).
 """
 
 from __future__ import annotations
@@ -15,8 +16,6 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
-
-from animate3d_tpu_torch.pipelines.train_mvvdm import is_trainable
 
 _FILE = "checkpoint.pt"
 
@@ -59,8 +58,3 @@ def restore_checkpoint(path: str, device="cpu") -> Dict[str, Any]:
     are loaded from there)."""
     return torch.load(os.path.join(path, _FILE), map_location=device, weights_only=True)
 
-
-def extract_motion_modules(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The trained entries only (motion modules + adapters): the release
-    export (the reference's ``save_motion_modules``)."""
-    return {name: t for name, t in state.items() if is_trainable(name)}

@@ -1,0 +1,71 @@
+"""Camera batches (host-side NumPy): the part of
+``animate3d_tpu/data/cameras.py`` stage-1 reconstruction uses.
+
+``fixed_view_cameras`` is the multi-image dataset's 4 training views x F
+frames (elevation 15°, azimuths 0/90/180/270, distance 3, fovy 40°),
+view-major, with ``timestamps = linspace(-1, 1, F)`` per view.
+:func:`gs_cameras_from_batch` turns a batch into the rasterizer's stacked
+camera tensors. The batch holds what the rasterizer and the loss read; the
+reference's rays and MVP matrices, which only the random-camera sampler's
+consumers read, are not built.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from animate3d_tpu_torch.ops.rasterize import GSCameraArrays
+from animate3d_tpu_torch.utils import camera as camu
+
+
+def _camera_batch(c2w, fovy_deg, height, width, timestamps, elevation_deg, azimuth_deg,
+                  camera_distances) -> Dict[str, np.ndarray]:
+    return {
+        "c2w": c2w.astype(np.float32),
+        "fovy": np.deg2rad(fovy_deg).astype(np.float32),
+        "camera_positions": c2w[:, :3, 3].astype(np.float32),
+        "elevation": elevation_deg.astype(np.float32),
+        "azimuth": azimuth_deg.astype(np.float32),
+        "camera_distances": camera_distances.astype(np.float32),
+        "timestamps": timestamps.astype(np.float32),
+        "height": height,
+        "width": width,
+    }
+
+
+def fixed_view_cameras(elevation_deg: float = 15.0,
+                       azimuths_deg: Tuple[float, ...] = (0.0, 90.0, 180.0, 270.0),
+                       distance: float = 3.0, fovy_deg: float = 40.0, height: int = 256,
+                       width: int = 256, total_frame: int = 16) -> Dict[str, np.ndarray]:
+    """The fixed training views x F frames, view-major."""
+    nv = len(azimuths_deg)
+    elev = np.repeat(np.full(nv, elevation_deg), total_frame)
+    azim = np.repeat(np.asarray(azimuths_deg, np.float64), total_frame)
+    dist = np.full(nv * total_frame, distance)
+    c2w = camu.look_at_c2w(camu.spherical_camera_position(elev, azim, dist))
+    fovy = np.full(nv * total_frame, fovy_deg)
+    timestamps = np.tile(np.linspace(-1.0, 1.0, total_frame), nv)
+    return _camera_batch(c2w, fovy, height, width, timestamps, elev, azim, dist)
+
+
+def gs_cameras_from_batch(batch: Dict[str, np.ndarray], znear: float = 0.1,
+                          zfar: float = 100.0, device="cpu") -> GSCameraArrays:
+    """Batch → stacked rasterizer cameras (B leading) on ``device``."""
+    h, w = batch["height"], batch["width"]
+    wvs, fps, ccs, tfx, tfy = [], [], [], [], []
+    for c2w, fy in zip(batch["c2w"], batch["fovy"]):
+        fy = float(fy)
+        fx = 2.0 * math.atan(math.tan(0.5 * fy) * (w / h))
+        wv, fp, cc = camu.gs_camera_info(c2w, fx, fy, znear, zfar)
+        wvs.append(wv)
+        fps.append(fp)
+        ccs.append(cc)
+        tfx.append(math.tan(0.5 * fx))
+        tfy.append(math.tan(0.5 * fy))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return GSCameraArrays(world_view=t(np.stack(wvs)), full_proj=t(np.stack(fps)),
+                          camera_center=t(np.stack(ccs)), tanfovx=t(tfx), tanfovy=t(tfy))

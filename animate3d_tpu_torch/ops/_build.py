@@ -30,9 +30,10 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd", "packed_attn_bwd")
+KERNELS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd", "packed_attn_bwd",
+           "composite_coarse")
 COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
-            "packed_attn_bwd")
+            "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd")
 
 LAUNCHES: "collections.Counter[tuple]" = collections.Counter()
 

@@ -97,6 +97,12 @@ def is_trainable(name: str) -> bool:
     return any(m in name for m in TRAINABLE_KEY_MARKERS)
 
 
+def extract_motion_modules(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The trained entries only (motion modules + adapters): the release
+    export (the reference's ``save_motion_modules``)."""
+    return {name: t for name, t in state.items() if is_trainable(name)}
+
+
 def trainable_mask(module: torch.nn.Module) -> Dict[str, bool]:
     """{parameter name: trainable} over ``module``'s parameters (the JAX
     package's ``trainable_mask`` over the port's diffusers names)."""

@@ -1,11 +1,15 @@
-"""MV-VDM conditioning cameras (host-side NumPy).
+"""Camera math (host-side NumPy).
 
 The port's own copy of the part of ``animate3d_tpu/utils/camera.py`` the
-sampler needs: +z up, OpenGL c2w columns (right, up, -lookat), and the
-unit-translation-normalised flattened 4x4 c2w as the 16-d camera input.
+sampler and the rasterizer need: +z up, OpenGL c2w columns (right, up,
+-lookat), the unit-translation-normalised flattened 4x4 c2w as the MV-VDM's
+16-d camera input, and the gaussian rasterizer's COLMAP-convention
+row-vector view / projection matrices.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -55,3 +59,32 @@ def get_camera(num_views: int, elevation: float = 15.0,
         spherical_camera_position(elevation, float(a), 1.0)))).reshape(16)
         for a in azimuths]
     return np.stack(mats, axis=0).astype(np.float32)
+
+
+def convert_pose(c2w: np.ndarray) -> np.ndarray:
+    """OpenGL → COLMAP camera axes: flip y and z."""
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    return np.asarray(c2w, dtype=np.float64) @ flip
+
+
+def gs_projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:
+    """The gaussian-splatting projection matrix (column convention)."""
+    top, right = math.tan(fovy / 2) * znear, math.tan(fovx / 2) * znear
+    P = np.zeros((4, 4), dtype=np.float64)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return P
+
+
+def gs_camera_info(c2w: np.ndarray, fovx: float, fovy: float, znear: float = 0.1,
+                   zfar: float = 100.0):
+    """The rasterizer's (world_view, full_proj, camera_center), float32, in
+    the reference's row-vector layout: ``x_view = x_world @ world_view``."""
+    world_view = np.linalg.inv(convert_pose(c2w)).T
+    full_proj = world_view @ gs_projection_matrix(znear, zfar, fovx, fovy).T
+    camera_center = np.linalg.inv(world_view)[3, :3]
+    return (world_view.astype(np.float32), full_proj.astype(np.float32),
+            camera_center.astype(np.float32))

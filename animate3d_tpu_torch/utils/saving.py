@@ -1,8 +1,12 @@
-"""GIF export (the port's own copies of animate3d_tpu's ``export_to_gif_mv``
-and ``save_videos_grid``)."""
+"""Artifact saving: the port's own copies of the parts of
+``animate3d_tpu/utils/saving.py`` it uses (multi-view and grid GIFs, RGBA
+pngs, trajectory npys, json, and the trial-dir :class:`Saver`). mp4
+writing is not ported yet.
+"""
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -45,3 +49,39 @@ def save_videos_grid(videos: np.ndarray, path: str, n_rows: int = 4, fps: int = 
     pil_frames[0].save(path, save_all=True, append_images=pil_frames[1:],
                        duration=int(1000 / fps), loop=0)
     return path
+
+
+def save_rgba_image(path: str, rgb: np.ndarray, alpha: np.ndarray) -> str:
+    """RGBA png from rgb (H, W, 3) and alpha (H, W) in [0, 1]."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    Image.fromarray(np.concatenate([_to_uint8(rgb), _to_uint8(alpha)[..., None]], -1)).save(path)
+    return path
+
+
+class Saver:
+    """Saves under one trial directory (threestudio's SaverMixin paths)."""
+
+    def __init__(self, save_dir: str):
+        self.save_dir = save_dir
+
+    def path(self, name: str) -> str:
+        p = os.path.join(self.save_dir, name)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        return p
+
+    def rgba(self, name: str, rgb: np.ndarray, alpha: np.ndarray) -> str:
+        return save_rgba_image(self.path(name), rgb, alpha)
+
+    def trajectory(self, name: str, means3d: np.ndarray) -> str:
+        """Per-frame gaussian positions (the mesh-animation export's input)."""
+        p = self.path(name)
+        np.save(p, np.asarray(means3d))
+        return p
+
+    def json(self, name: str, data) -> str:
+        p = self.path(name)
+        with open(p, "w") as f:
+            json.dump(data, f, indent=2)
+        return p

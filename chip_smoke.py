@@ -21,10 +21,19 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    batch 1, gradient checkpointing, random weights from a seed) for 3 steps
    on a synthetic manifest, launch counters zeroed just before and read just
    after, then one loss + backward through the kernels against the same
-   step through the plain versions.
+   step through the plain versions;
+6. recon: stage-1 motion reconstruction through its CLI with
+   configs/animate3d/motion_recon_frame_16.yaml as it is (4 views x 16
+   frames at 256^2, 20,000 gaussians of a seeded random asset, frames
+   rendered by the port under a seeded per-frame translation) for 3 steps
+   plus its four-view test pass at 512^2, launch counters zeroed just
+   before and read just after; then timed steps at the full schedule and at
+   the frame buckets 2 / 4 / 8, one profiled step, and one full-size loss +
+   backward through kernel H against the same step on the plain versions.
 
-Phase 2 also checks the forward kernels at the trainer's shapes and the
-backward kernels (D, E) against their plain backward versions. The line
+Phase 2 also checks the forward kernels at the trainer's shapes, the
+backward kernels (D, E) against their plain backward versions, and kernel H
+(forward and backward, f32) at the recon shapes. The line
 before the last is a JSON object with one row per kernel and main-path
 shape; the last line is ``{"ok": true, "device": {...}}``. Imports nothing
 of JAX.
@@ -44,12 +53,14 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 
 # per UNet forward at full width (SD1.5 topology, 4 views x 16 frames, 256^2)
 # on the CFG batch of sampling; no backward kernel runs there
 PER_FORWARD = {"flash_fwd": 40, "packed_attn": 20, "geglu": 37, "flash_bwd_dq": 0,
-               "flash_bwd_dkv": 0, "packed_attn_bwd": 0}
+               "flash_bwd_dkv": 0, "packed_attn_bwd": 0, "composite_coarse_fwd": 0,
+               "composite_coarse_bwd": 0}
 # per train step (one video: batch 16 frames per view-major UNet call) with
 # gradient checkpointing: every kernel site's forward runs twice (forward and
 # the block's recompute in backward); L1 flash sites fall under the 512 MiB
@@ -59,7 +70,12 @@ PER_FORWARD = {"flash_fwd": 40, "packed_attn": 20, "geglu": 37, "flash_bwd_dq": 
 # frame 0's frozen projections), so 20 L0 sites give 19 dq and 18 dk/dv
 # launches; E runs at all 20 temporal sites.
 PER_TRAIN_STEP = {"flash_fwd": 40, "packed_attn": 40, "geglu": 74, "flash_bwd_dq": 19,
-                  "flash_bwd_dkv": 18, "packed_attn_bwd": 20}
+                  "flash_bwd_dkv": 18, "packed_attn_bwd": 20, "composite_coarse_fwd": 0,
+                  "composite_coarse_bwd": 0}
+# per recon step: the step's renders (all views x its frames) are one batch
+# of the rasterizer, so kernel H runs once forward and once backward
+PER_RECON_STEP = {k: 0 for k in PER_FORWARD} | {"composite_coarse_fwd": 1,
+                                                "composite_coarse_bwd": 1}
 SOURCES = {
     "flash_fwd": ("animate3d_tpu_torch/csrc/flash_fwd.cu",
                   "animate3d_tpu/ops/attention.py:234"),
@@ -71,6 +87,10 @@ SOURCES = {
                   "animate3d_tpu/ops/attention.py:400,436"),
     "packed_attn_bwd": ("animate3d_tpu_torch/csrc/packed_attn_bwd.cu",
                         "animate3d_tpu/ops/attention.py:788"),
+    "composite_coarse_fwd": ("animate3d_tpu_torch/csrc/composite_coarse.cu",
+                             "animate3d_tpu/ops/rasterize_pallas.py:298"),
+    "composite_coarse_bwd": ("animate3d_tpu_torch/csrc/composite_coarse.cu",
+                             "animate3d_tpu/ops/rasterize_pallas.py:392"),
 }
 
 
@@ -385,7 +405,13 @@ def e2e_phase(tmp: str) -> dict:
 
 def _family(name: str) -> str:
     n = name.lower()
-    for key, fam in (("flash_fwd_kernel", "kernel A flash_fwd"),
+    for key, fam in (("composite_coarse_fwd_kernel", "kernel H fwd"),
+                     ("composite_coarse_bwd_kernel", "kernel H bwd"),
+                     ("topk", "top-k binning"), ("sort", "top-k binning"),
+                     ("gesvd", "SVD (ARAP)"), ("svd", "SVD (ARAP)"),
+                     ("scatter", "gather / scatter"), ("gather", "gather / scatter"),
+                     ("index", "gather / scatter"),
+                     ("flash_fwd_kernel", "kernel A flash_fwd"),
                      ("packed_attn_kernel", "kernel B packed_attn"),
                      ("geglu_gemm_kernel", "kernel C geglu"),
                      ("flash_bwd_dq_kernel", "kernel D flash_bwd dq"),
@@ -706,15 +732,338 @@ def train_reference_phase() -> dict:
     return dict(ok=ok, rel=rel, loss_rel=loss_rel)
 
 
+RECON_YAML = "configs/animate3d/motion_recon_frame_16.yaml"
+RECON_N, RECON_VIEWS, RECON_FRAMES, RECON_RES, RECON_EVAL = 20000, 4, 16, 256, 512
+RECON_STEPS = 3
+# f32 operations per (pixel, candidate) pair that H's function needs:
+# evaluating a candidate's alpha (offsets, conic form, exp, gates) takes 14;
+# a live alpha adds 12 in the forward (weight, 4 channel sums, alpha sum,
+# transmittance) and 40 in the backward (transmittance, weight, dw, dalpha,
+# suffix, the 10 gradient terms). The backward's function needs alpha once
+# a pair: the kernel's second and third evaluations (block recompute,
+# reverse walk) are its own strategy and are not counted.
+H_FWD_OPS = (14, 12)
+H_BWD_OPS = (14, 40)
+H_PLANE_TOL, H_PLANE_REL, H_GRAD_REL = 2.0 ** -6, 1e-4, 1e-3
+
+
+def _recon_state(device):
+    """The recon asset: ``random_state(n=20000, radius=0.4)`` from seed 0."""
+    from animate3d_tpu_torch.gaussians.state import random_state
+
+    return random_state(RECON_N, radius=0.4, generator=torch.Generator().manual_seed(0),
+                        device=device)
+
+
+def _h_fields(n_renders: int, res: int):
+    """Kernel H's inputs as the recon path builds them: the asset projected
+    and binned by the port through the first ``n_renders`` of the 4 x 16
+    fixed cameras at ``res``^2 (kc = coarse_k = 512)."""
+    from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
+    from animate3d_tpu_torch.ops import rasterize as R
+
+    st = _recon_state("cuda")
+    cams = gs_cameras_from_batch(fixed_view_cameras(height=res, width=res,
+                                                    total_frame=RECON_FRAMES), device="cuda")
+    idx = torch.arange(n_renders, device="cuda")
+    b, n = n_renders, st.num_points
+    with torch.no_grad():
+        fields, corig, _, _ = R.coarse_fields(
+            st.xyz.expand(b, n, 3), st.get_scaling().expand(b, n, 3),
+            st.get_rotation().expand(b, n, 4), st.get_opacity().reshape(-1), cams.index(idx),
+            R.RasterConfig(height=res, width=res), shs=st.get_features())
+    return fields, corig
+
+
+def _h_rows(label, fields, corig, gen, backward=True) -> list:
+    """Kernel H forward (and backward) on recon fields against the plain
+    versions. Limits: planes max |diff| <= 2^-6 (one flipped 1/255 gate or
+    0.99 clamp moves a pixel by at most 1/255 T) and relative L2 <= 1e-4;
+    field gradients relative L2 <= 1e-3 (sums over 4096 pixels in another
+    order, amplified by 1 / (1 - alpha) <= 100)."""
+    from animate3d_tpu_torch.ops import rasterize as R
+
+    n_ct, _, kc = fields.shape
+    key = (n_ct, kc, 4)
+    out = R.composite_coarse(fields, corig)
+    ref, pairs, live = R._composite_coarse_plain(fields, corig, count_pairs=True)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    rel = float((out - ref).norm() / ref.norm())
+    ok = err <= H_PLANE_TOL and rel <= H_PLANE_REL and bool(torch.isfinite(out).all())
+    bound, by = _bound_f32(H_FWD_OPS[0] * pairs + H_FWD_OPS[1] * live,
+                           4.0 * (fields.numel() + corig.numel() + out.numel()))
+    rows = [dict(name="composite_coarse_fwd", shape=f"{label} fields ({n_ct}, 12, {kc})",
+                 keys=[("composite_coarse_fwd", key)], max_abs_err=err, tol=H_PLANE_TOL,
+                 rel=rel, rel_tol=H_PLANE_REL, ok=ok, pairs=pairs, live=live,
+                 ms=_time_ms(lambda: R.composite_coarse(fields, corig), 10),
+                 plain_ms=_time_ms(lambda: R._composite_coarse_plain(fields, corig), 1),
+                 library_ms=None, bound_ms=bound, bound_by=by)]
+    if backward:
+        cot = torch.randn(out.shape, generator=gen, device="cuda") * 1e-3
+        g = R.composite_coarse_bwd(fields, corig, cot)
+        gref = R._composite_coarse_bwd_plain(fields, corig, cot)
+        torch.cuda.synchronize()
+        rel = float((g - gref).norm() / gref.norm())
+        ok = rel <= H_GRAD_REL and bool(torch.isfinite(g).all()) and float(g[:, 10:].abs().max()) == 0
+        # the backward reads planes 0-5 of the cotangent (r, g, b, alpha,
+        # depth, T_final): 6 of its 8
+        bound, by = _bound_f32(H_BWD_OPS[0] * pairs + H_BWD_OPS[1] * live,
+                               4.0 * (fields.numel() + corig.numel() + cot[:, :, :6].numel()
+                                      + g.numel()))
+        rows.append(dict(
+            name="composite_coarse_bwd", shape=f"{label} fields ({n_ct}, 12, {kc})",
+            keys=[("composite_coarse_bwd", key)], max_abs_err=float((g - gref).abs().max()),
+            tol=None, rel=rel, rel_tol=H_GRAD_REL, ok=ok, pairs=pairs, live=live,
+            ms=_time_ms(lambda: R.composite_coarse_bwd(fields, corig, cot), 5),
+            plain_ms=_time_ms(lambda: R._composite_coarse_bwd_plain(fields, corig, cot), 1),
+            library_ms=None, bound_ms=bound, bound_by=by))
+    return rows
+
+
+def _bound_f32(ops: float, nbytes: float):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def h_kernel_phase() -> list:
+    """Kernel H at every shape the recon path gives it: the step's renders
+    at 256^2 (64 at the full schedule, 32 / 16 / 8 at the frame buckets 8 /
+    4 / 2), forward and backward; the four-view test's 64 renders at 512^2,
+    forward only. No PyTorch call computes H: library_ms is null."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    fields, corig = _h_fields(RECON_VIEWS * RECON_FRAMES, RECON_RES)
+    rows = []
+    for renders, label in ((64, "recon step, 64 renders at 256^2"),
+                           (32, "bucket 8, 32 renders at 256^2"),
+                           (16, "bucket 4, 16 renders at 256^2"),
+                           (8, "bucket 2, 8 renders at 256^2")):
+        n_ct = renders * 16
+        rows += _h_rows(label, fields[:n_ct].contiguous(), corig[:n_ct].contiguous(), gen)
+    del fields, corig
+    fields, corig = _h_fields(RECON_VIEWS * RECON_FRAMES, RECON_EVAL)
+    rows += _h_rows("test pass, 64 renders at 512^2", fields, corig, gen, backward=False)
+    for r in rows:
+        tol = f"(tol {r['tol']:.3e}) " if r["tol"] is not None else ""
+        print(f"[kernel] {r['name']:<20} {r['shape']:<58} max|d| {r['max_abs_err']:.3e} {tol}"
+              f"rel L2 {r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}; {r['pairs']} pairs, {r['live']} live) "
+              f"{'ok' if r['ok'] else 'FAIL'}")
+    return rows
+
+
+def _recon_workspace(tmp: str):
+    """The recon config's inputs, made from seed 0: the asset written as a
+    .ply by the port, and 64 RGBA frames (4 views x 16, view-major
+    ``{i}.png``) rendered by the port from the same asset, each frame under
+    its own translation (frame 0 static)."""
+    from PIL import Image
+
+    from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
+    from animate3d_tpu_torch.gaussians.ply import write_gaussian_ply
+    from animate3d_tpu_torch.rendering.renderer4d import Renderer4DConfig, render_batch
+
+    st = _recon_state("cuda")
+    ply = os.path.join(tmp, "asset.ply")
+    write_gaussian_ply(ply, st)
+    shift = 0.03 * torch.randn((RECON_FRAMES, 3), generator=torch.Generator().manual_seed(1))
+    shift = shift.cuda()
+    cams = fixed_view_cameras(height=RECON_RES, width=RECON_RES, total_frame=RECON_FRAMES)
+    b, n = RECON_VIEWS * RECON_FRAMES, st.num_points
+    frame = torch.arange(b, device="cuda") % RECON_FRAMES
+
+    def deform(_):
+        return (st.xyz + shift[frame][:, None], st.get_rotation().expand(b, n, 4),
+                st.get_scaling().expand(b, n, 3))
+
+    with torch.no_grad():
+        out = render_batch(st, deform, gs_cameras_from_batch(cams, device="cuda"),
+                           torch.as_tensor(cams["timestamps"], device="cuda"),
+                           Renderer4DConfig(back_ground_color=(0.5, 0.5, 0.5)),
+                           do_reconstruction=False)
+    rgba = torch.cat([out.rgb, out.alpha[..., None]], -1).clamp(0, 1).mul(255).byte().cpu()
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    for i in range(b):
+        Image.fromarray(rgba[i].numpy(), "RGBA").save(os.path.join(frames, f"{i}.png"))
+    print(f"[recon] workspace: {n} gaussians, {b} frames of {RECON_RES}^2, mean alpha "
+          f"{float(out.alpha.mean()):.3f}")
+    return ply, frames
+
+
+def recon_phase(tmp: str) -> dict:
+    """The recon CLI with the shipped config for RECON_STEPS steps plus its
+    test pass, launch counters zeroed just before and read just after. The
+    only changes are dotted overrides: the prompt (the yaml's ???), the data
+    paths, the output root, the step count, trajectories on, and the test
+    size 512^2 (the yaml's four-view test reads data.eval_height/width,
+    which it leaves unset)."""
+    from PIL import Image
+
+    from animate3d_tpu_torch.cli.launch import main as launch_main
+    from animate3d_tpu_torch.ops import _build
+
+    ply, frames = _recon_workspace(tmp)
+    args = ["--config", RECON_YAML, "--train", "system.prompt_processor.prompt=a toy",
+            f"data.image_root={frames}", f"system.geometry.geometry_convert_from={ply}",
+            f"exp_root_dir={tmp}/out", f"trainer.max_steps={RECON_STEPS}",
+            f"data.eval_height={RECON_EVAL}", f"data.eval_width={RECON_EVAL}",
+            "system.save_gaussian_trajectory=true"]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = launch_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals, per_shape = _build.launch_totals(), dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: n * RECON_STEPS for k, n in PER_RECON_STEP.items()}
+    expected["composite_coarse_fwd"] += 1  # the test pass: 64 renders in one launch
+    trial = res["trial_dir"]
+    metrics = res["metrics"]
+    images = sorted(os.listdir(os.path.join(trial, "save", "images")))
+    with Image.open(os.path.join(trial, "save", "images", images[0])) as im:
+        size, mode = im.size, im.mode
+    trajs = os.listdir(os.path.join(trial, "save", "gaussian_trajectory"))
+    ckpt = os.path.exists(os.path.join(trial, "ckpts", f"step_{RECON_STEPS}", "checkpoint.pt"))
+    losses = [m["loss"] for m in metrics]
+    ok = (totals == expected and len(losses) == RECON_STEPS and all(np.isfinite(losses))
+          and ckpt and len(images) == RECON_VIEWS * RECON_FRAMES
+          and size == (RECON_EVAL, RECON_EVAL) and mode == "RGBA"
+          and len(trajs) == RECON_FRAMES and np.isfinite(res["rgb"]).all())
+    print(f"[recon] CLI --train, {RECON_STEPS} steps + four-view test: wall {wall:.2f} s; "
+          f"peak memory {peak_gb:.2f} GiB; losses " + ", ".join(f"{x:.5f}" for x in losses)
+          + "; metrics.jsonl keys " + ",".join(sorted(metrics[-1])))
+    print(f"[recon] launches {totals} (expected {expected}: {PER_RECON_STEP} per step, one "
+          f"forward for the test pass); per shape {per_shape}")
+    print(f"[recon] ckpts/step_{RECON_STEPS} written {ckpt}; {len(images)} test images "
+          f"{size} {mode}; {len(trajs)} trajectories; raster overflow in the test pass "
+          f"{res['overflow']}")
+    return dict(ok=ok, per_shape=per_shape, system=res["system"], frames=frames,
+                wall_s=wall, peak_gb=peak_gb)
+
+
+def _recon_batch(system, frames: str) -> dict:
+    from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
+    from animate3d_tpu_torch.data.multi_image import MultiImageConfig, MultiImageDataset
+
+    raw = MultiImageDataset(MultiImageConfig(image_root=frames)).batch(0)
+    return {"gs_cameras": gs_cameras_from_batch(raw, device="cuda"),
+            "timestamps": raw["timestamps"], "rgb": torch.as_tensor(raw["rgb"], device="cuda"),
+            "mask": torch.as_tensor(raw["mask"].astype(np.float32), device="cuda")}
+
+
+def recon_timing_phase(system, frames: str) -> dict:
+    """Seconds per recon step (host clock, ended by a synchronize; one
+    warm-up step, then the mean of 3) at the full schedule
+    (global_step = 50 x 16 + 1: all 64 renders) and at the frame buckets
+    2 / 4 / 8, with their schedule-weighted average over the 800-step run
+    (steps 0-99 bucket 2, 100-199 bucket 4, 200-399 bucket 8, 400-799 all
+    16 frames: the JAX package's bench.py definition). Launch counters
+    zeroed just before, read just after; then one step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animate3d_tpu_torch.ops import _build
+
+    batch = _recon_batch(system, frames)
+    ipf = system.cfg.progressive_iter_per_frame
+    iters = 3
+
+    def measure(gstep: int) -> float:
+        system.global_step = gstep
+        system.step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            system.step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    full = measure(ipf * RECON_FRAMES + 1)
+    t2, t4, t8 = measure(ipf + 10), measure(3 * ipf + 10), measure(7 * ipf + 10)
+    totals, per_shape = _build.launch_totals(), dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    avg = (100 * t2 + 100 * t4 + 200 * t8 + 400 * full) / 800.0
+    steps = 4 * (iters + 1)
+    expected = {k: n * steps for k, n in PER_RECON_STEP.items()}
+    print(f"[recon-time] seconds per recon step: full schedule (64 renders) {full:.4f}; "
+          f"buckets 2 / 4 / 8 (8 / 16 / 32 renders) {t2:.4f} / {t4:.4f} / {t8:.4f}; "
+          f"schedule average {avg:.4f}; peak memory {peak_gb:.2f} GiB")
+    print(f"[recon-time] launches {totals} over {steps} steps (expected {expected})")
+
+    system.global_step = ipf * RECON_FRAMES + 1
+    system.step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _print_profile("[recon-profile]", "one recon step at the full schedule (64 renders at "
+                   "256^2, 20,000 gaussians)", prof, wall_ms)
+    return dict(ok=totals == expected and np.isfinite(full), per_shape=per_shape, step_s=full,
+                buckets=(t2, t4, t8), avg_s=avg, peak_gb=peak_gb, batch=batch)
+
+
+def recon_reference_phase(system, batch) -> dict:
+    """One full-size recon loss + backward (all 64 renders, fixed draws)
+    through kernel H against the same step with H on its plain versions.
+    Limits: the loss within 1e-4 relative, the concatenated parameter
+    gradient within 1e-3 relative L2 (kernel H's f32 sums in another order,
+    carried through the gathers of the K-planes and the deformation MLPs)."""
+    from animate3d_tpu_torch.ops import _build, routing
+    from animate3d_tpu_torch.rendering.renderer4d import make_draws
+    from animate3d_tpu_torch.systems.animate3d import StepDraws
+
+    system.global_step = system.cfg.progressive_iter_per_frame * RECON_FRAMES + 1
+    cams, ts, rgb, mask, fw = system.step_batch(batch)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = system.state.num_points
+    draws = StepDraws(render=make_draws(system.cfg.renderer, len(ts), n, gen, "cuda"),
+                      arap_idx=torch.randint(0, n, (system.cfg.loss.arap_sample_num,),
+                                             generator=gen, device="cuda"))
+    params = [p for _, p in system.field.named_parameters()]
+    ts, fw = torch.as_tensor(ts, device="cuda"), torch.as_tensor(fw, device="cuda")
+
+    def run():
+        _build.reset_launches()
+        loss, _ = system.loss(cams, ts, rgb, mask, fw, system.lambdas(system.global_step),
+                              draws)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        flat = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                          for g, p in zip(grads, params)])
+        return float(loss.detach()), flat, _build.launch_totals()
+
+    loss_k, g_k, counts_k = run()
+    with routing.plain_ops():
+        loss_p, g_p, counts_p = run()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    ok = (loss_rel <= 1e-4 and rel <= 1e-3 and bool(torch.isfinite(g_k).all())
+          and counts_k == PER_RECON_STEP and not any(counts_p.values()))
+    print(f"[recon-reference] full-size recon loss + backward, kernel H vs plain: loss "
+          f"{loss_k:.7f} vs {loss_p:.7f} (relative {loss_rel:.3e}, tol 1e-4); parameter "
+          f"gradient ({g_k.numel()} values) relative L2 {rel:.3e} (tol 1e-3), norms "
+          f"{float(g_k.norm()):.4e} vs {float(g_p.norm()):.4e}; launches through the kernels "
+          f"{counts_k} (expected {PER_RECON_STEP}), through the plain ops {counts_p}")
+    return dict(ok=ok, rel=rel, loss_rel=loss_rel)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     env = env_phase()
     rows = kernel_phase()
-    if not all(r["ok"] for r in rows) or not edge_phase():
+    h_rows = h_kernel_phase()
+    if not all(r["ok"] for r in rows + h_rows) or not edge_phase():
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
+    rows += h_rows
     with tempfile.TemporaryDirectory() as tmp:
         e2e = e2e_phase(tmp)
     if not e2e["ok"]:
@@ -743,12 +1092,40 @@ def main() -> int:
         print("chip_smoke: the train step through the kernels disagrees with plain ops",
               file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        recon = recon_phase(tmp)
+        if not recon["ok"]:
+            print("chip_smoke: the recon CLI run failed its checks", file=sys.stderr)
+            return 1
+        timing = recon_timing_phase(recon["system"], recon["frames"])
+        if not timing["ok"]:
+            print("chip_smoke: the timed recon steps failed their checks", file=sys.stderr)
+            return 1
+        recon_ref = recon_reference_phase(recon["system"], timing.pop("batch"))
+    del recon["system"]
+    if not recon_ref["ok"]:
+        print("chip_smoke: the recon step through kernel H disagrees with plain ops",
+              file=sys.stderr)
+        return 1
+    missing = (set(recon["per_shape"]) | set(timing["per_shape"])) - checked
+    if missing:
+        print(f"chip_smoke: recon-path kernel shapes not checked: {missing}", file=sys.stderr)
+        return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
     print(f"[summary] seconds per train step (full width, gradient checkpointing, mean of "
           f"the steps after the first): {train['step_s']:.4f}; peak memory "
           f"{train['peak_gb']:.2f} GiB; card {env['smi']}")
-    launches = collections.Counter(e2e["per_shape"]) + collections.Counter(train["per_shape"])
+    print(f"[summary] seconds per recon step (20,000 gaussians, 4 views x 16 frames at "
+          f"256^2): full schedule {timing['step_s']:.4f}, buckets 2 / 4 / 8 "
+          + " / ".join(f"{t:.4f}" for t in timing["buckets"])
+          + f", schedule average {timing['avg_s']:.4f}; kernel H launches per step "
+          f"{PER_RECON_STEP['composite_coarse_fwd']} forward + "
+          f"{PER_RECON_STEP['composite_coarse_bwd']} backward; peak memory "
+          f"{timing['peak_gb']:.2f} GiB; card {env['smi']}")
+    launches = (collections.Counter(e2e["per_shape"]) + collections.Counter(train["per_shape"])
+                + collections.Counter(recon["per_shape"])
+                + collections.Counter(timing["per_shape"]))
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",
                     source=SOURCES[r["name"]][0], replaces=SOURCES[r["name"]][1],
                     launches=sum(launches[key] for key in r["keys"]),

@@ -12,6 +12,7 @@ from PIL import Image
 
 from animate3d_tpu_torch.core import checkpoint as ckpt
 from animate3d_tpu_torch.data.video_dataset import MVideoConfig, MVideoDataset, Prefetcher
+from animate3d_tpu_torch.pipelines.train_mvvdm import extract_motion_modules
 
 
 def _workspace(tmp_path, frames_per_view=0):
@@ -141,7 +142,7 @@ def test_checkpoint_keep_and_latest(tmp_path):
              "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q_i2v.weight":
                  torch.ones(1),
              "down_blocks.0.resnets.0.conv1.weight": torch.ones(1)}
-    assert set(ckpt.extract_motion_modules(state)) == set(list(state)[:2])
+    assert set(extract_motion_modules(state)) == set(list(state)[:2])
 
 
 @pytest.mark.parametrize("override", ["use_wandb=true", "zero_sharded_optimizer=true",
