@@ -1,5 +1,5 @@
 """Experiment runner for the 4D stage: the port of ``animate3d_tpu/cli/launch.py``
-for stage-1 motion reconstruction.
+for stage-1 motion reconstruction and its evaluation.
 
     python -m animate3d_tpu_torch.cli.launch --config configs/animate3d/motion_recon_frame_16.yaml \\
         --train system.prompt_processor.prompt="a butterfly" data.image_root=<frames> \\
@@ -7,15 +7,25 @@ for stage-1 motion reconstruction.
 
 ``--train`` optimises the deformation field on the whole-video batch
 (uploaded once), logs ``metrics.jsonl``, writes ``ckpts/step_N``, then runs
-the ``--test`` pass: the four fixed views at ``data.eval_height/width``
-(default ``data.height/width``) as RGBA pngs and, with
-``system.save_gaussian_trajectory``, per-frame ``.npy`` trajectories.
+the ``--test`` pass. ``--test`` restores ``resume`` (or the trial's latest
+checkpoint) and renders ``system.test_option``'s cameras: ``four_view``, the
+four training views at ``data.eval_height/width`` (default
+``data.height/width``), with a PSNR / SSIM (/ LPIPS, given weights) report
+``save/metrics_test.json`` against the frames of ``data.image_root``; or
+``testset``, the 3-elevation x 4-azimuth grid at the eval size of
+``data.<key>`` or ``data.random_camera.<key>`` (default 512²). Each view
+becomes RGBA pngs and a video (``save/videos/view_{v}.mp4``, a GIF where no
+mp4 writer exists); ``system.save_gaussian_trajectory`` adds per-frame
+``.npy`` trajectories. ``--export`` is ``--test`` with the trajectories on.
+``--validate`` renders the 360° orbit (``data.n_val_views`` frames, default
+120, at ``data.eval_height/width``, default 512²) as a video and
+``save/val/orbit.gif``.
+
 Runs on ``cuda`` unless ``--device cpu``; raises when CUDA is absent. The
 path is float32 throughout: on CUDA, ``resolve_device`` turns TF32 off for
 matmuls and convolutions (the K-planes and MLP products are f32 in the
-reference). Not ported yet: ``--validate``, ``--export``, dp meshes
-(``trainer.mesh_dp``), mp4 writing, SSIM / LPIPS, the testset camera grid,
-and the refine stage (guidance, ``system.weights``).
+reference). Not ported yet: dp meshes (``trainer.mesh_dp``) and the refine
+stage (guidance, ``system.weights``).
 """
 
 from __future__ import annotations
@@ -125,19 +135,66 @@ def _eval_renderer_cfg(system, height: int, width: int):
     return dataclasses.replace(system.cfg.renderer, height=int(height), width=int(width))
 
 
+def _quality_report(cfg, system, rgb: np.ndarray, saver) -> dict:
+    """PSNR / SSIM per view (and LPIPS, given weights) of the four-view
+    renders (V, F, H, W, 3) against the frames of ``data.image_root`` over
+    the background, written to ``metrics_test.json``."""
+    from animate3d_tpu_torch.data.multi_image import load_rgba_frames
+    from animate3d_tpu_torch.utils import metrics as qm
+
+    n_views, n_frame, h, w = rgb.shape[:4]
+    gt_rgb, gt_mask = load_rgba_frames(cfg.data["image_root"], h, w)
+    bgc = np.asarray(system.cfg.renderer.back_ground_color, np.float32)
+    gt = (gt_rgb * gt_mask + bgc * (1.0 - gt_mask)).reshape(n_views, n_frame, h, w, 3)
+    dev = system.device
+    on_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    per_view = []
+    with torch.no_grad():
+        for v in range(n_views):
+            pred, ref = on_dev(rgb[v]), on_dev(gt[v])
+            per_view.append({"view": v, "psnr": round(float(qm.psnr(pred, ref)), 3),
+                             "ssim": round(float(qm.ssim(pred, ref).mean()), 4)})
+        report = {"per_view": per_view,
+                  "psnr": round(float(np.mean([r["psnr"] for r in per_view])), 3),
+                  "ssim": round(float(np.mean([r["ssim"] for r in per_view])), 4)}
+        lp = qm.load_lpips(device=dev)
+        if lp is not None:
+            d = lp(on_dev(rgb.reshape(-1, h, w, 3)), on_dev(gt.reshape(-1, h, w, 3)))
+            report["lpips"] = round(float(d.mean()), 4)
+    saver.json("metrics_test.json", report)
+    print(f"[test] PSNR {report['psnr']:.2f} dB  SSIM {report['ssim']:.4f}"
+          + (f"  LPIPS {report['lpips']:.4f}" if "lpips" in report else ""))
+    return report
+
+
 def run_test(cfg, system) -> dict:
-    from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
+    from animate3d_tpu_torch.data.cameras import (
+        fixed_view_cameras,
+        gs_cameras_from_batch,
+        testset_grid_cameras,
+    )
     from animate3d_tpu_torch.utils.saving import Saver
 
     _restore_for_eval(cfg, system, "test")
     test_option = cfg.system.get("test_option", "testset")
-    if test_option != "four_view":
-        raise NotImplementedError(f"system.test_option={test_option!r}: only four_view is "
-                                  "ported (the testset camera grid is not yet)")
     n_frame = system.cfg.n_frame
-    eval_h = cfg.data.get("eval_height", cfg.data.get("height", 256))
-    eval_w = cfg.data.get("eval_width", cfg.data.get("width", 256))
-    cams = fixed_view_cameras(height=eval_h, width=eval_w, total_frame=n_frame)
+    rc = cfg.data.get("random_camera", {}) or {}
+
+    def eval_opt(key, default):  # a top-level data.<key> wins over data.random_camera.<key>
+        return cfg.data.get(key, rc.get(key, default))
+
+    if test_option == "four_view":
+        eval_h = cfg.data.get("eval_height", cfg.data.get("height", 256))
+        eval_w = cfg.data.get("eval_width", cfg.data.get("width", 256))
+        cams = fixed_view_cameras(height=eval_h, width=eval_w, total_frame=n_frame)
+    else:
+        grid = {}
+        if eval_opt("eval_elevation_deg", None) is not None:
+            grid["elevations_deg"] = tuple(eval_opt("eval_elevation_deg", ()))
+        if eval_opt("eval_azimuth_deg", None) is not None:
+            grid["azimuth_sets_deg"] = tuple(tuple(a) for a in eval_opt("eval_azimuth_deg", ()))
+        eval_h, eval_w = eval_opt("eval_height", 512), eval_opt("eval_width", 512)
+        cams = testset_grid_cameras(height=eval_h, width=eval_w, total_frame=n_frame, **grid)
     out = system.render(gs_cameras_from_batch(cams, device=system.device), cams["timestamps"],
                         renderer_cfg=_eval_renderer_cfg(system, eval_h, eval_w))
     saver = Saver(os.path.join(cfg.trial_dir, "save"))
@@ -145,16 +202,43 @@ def run_test(cfg, system) -> dict:
     n_views = rgb.shape[0] // n_frame
     rgb = rgb.reshape(n_views, n_frame, *rgb.shape[1:])
     alpha = out.alpha.cpu().numpy().reshape(n_views, n_frame, eval_h, eval_w)
+    videos = []
     for v in range(n_views):
         for f in range(n_frame):
             saver.rgba(f"images/{v * n_frame + f}.png", rgb[v, f], alpha[v, f])
+        videos.append(saver.mp4(f"videos/view_{v}.mp4", rgb[v]))
     if cfg.system.get("save_gaussian_trajectory", False):
         means = out.means3d.cpu().numpy().reshape(n_views, n_frame, -1, 3)[0]
         for f in range(n_frame):
             saver.trajectory(f"gaussian_trajectory/means3D_frame_{f}.npy", means[f])
-    print(f"[test] wrote {n_views * n_frame} RGBA images of {eval_h}x{eval_w} to "
-          f"{saver.save_dir} (mp4 writing is not ported yet)")
-    return {"rgb": rgb, "alpha": alpha, "overflow": int(out.overflow)}
+    report = None
+    image_root = cfg.data.get("image_root")
+    if test_option == "four_view" and image_root and os.path.isdir(image_root):
+        report = _quality_report(cfg, system, rgb, saver)
+    print(f"[test] wrote {n_views * n_frame} RGBA images of {eval_h}x{eval_w} and "
+          f"{len(videos)} videos to {saver.save_dir}")
+    return {"rgb": rgb, "alpha": alpha, "overflow": int(out.overflow), "videos": videos,
+            "report": report}
+
+
+def run_validate(cfg, system) -> dict:
+    """The validation orbit: the camera sweeps 360° while the animation
+    plays, as a video and ``val/orbit.gif``."""
+    from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch, val_orbit_cameras
+    from animate3d_tpu_torch.utils.saving import Saver
+
+    _restore_for_eval(cfg, system, "validate")
+    eval_h, eval_w = cfg.data.get("eval_height", 512), cfg.data.get("eval_width", 512)
+    cams = val_orbit_cameras(n_views=int(cfg.data.get("n_val_views", 120)), height=eval_h,
+                             width=eval_w, total_frame=system.cfg.n_frame)
+    out = system.render(gs_cameras_from_batch(cams, device=system.device), cams["timestamps"],
+                        renderer_cfg=_eval_renderer_cfg(system, eval_h, eval_w))
+    saver = Saver(os.path.join(cfg.trial_dir, "save"))
+    rgb = out.rgb.cpu().numpy()
+    video = saver.mp4("videos/val_orbit.mp4", rgb)
+    gif = saver.gif_mv("val/orbit.gif", rgb[None])
+    print(f"[validate] wrote the {rgb.shape[0]}-frame orbit to {saver.save_dir}")
+    return {"rgb": rgb, "video": video, "gif": gif}
 
 
 def main(argv=None) -> dict:
@@ -167,8 +251,6 @@ def main(argv=None) -> dict:
                         help="cuda (default) or cpu; CUDA asked for and absent raises")
     parser.add_argument("extras", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
-    if args.validate or args.export:
-        raise NotImplementedError("--validate and --export are not ported yet (ROADMAP.md §1)")
 
     from animate3d_tpu_torch.core.config import dump_config, load_config
     from animate3d_tpu_torch.core.device import resolve_device
@@ -182,8 +264,13 @@ def main(argv=None) -> dict:
                 {"data": cfg.data, "system": cfg.system, "trainer": cfg.trainer})
     system = build_system(cfg, seed=cfg.seed, device=device)
     res = {"system": system, "trial_dir": cfg.trial_dir}
+    if args.validate:
+        res.update(run_validate(cfg, system))
+        return res
     if args.train:
         res.update(run_train(cfg, system))
+    if args.export:
+        cfg.system["save_gaussian_trajectory"] = True
     res.update(run_test(cfg, system))
     return res
 

@@ -38,8 +38,8 @@
 //     warps in shared memory, in a fixed order.
 //   dalpha = dw T_k - (S + g_T T_final) / (1 - alpha); the gradient passes
 //   through alpha only where live, hit and raw <= 0.99.
-// expf (not __expf) and round-to-nearest products without contraction keep
-// the 1/255 gate on the same side as the plain version's.
+// The alpha evaluation and the reverse walk's gradient terms are shared with
+// kernel G (composite_common.cuh).
 //
 // Bound on the H100: at the recon shapes the least time is set by the bytes
 // (fields read once, planes written once); the f32 arithmetic per evaluated
@@ -54,21 +54,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;  // threads per CTA: one per pixel
-constexpr int KB = 128;          // candidate block
-constexpr int NFIELD = 12;
+using namespace composite;
+
 constexpr int MAX_KC = 512;
 constexpr int MAX_BLOCKS = MAX_KC / KB;
-constexpr int WARPS = PX / 32;
-constexpr int NGRAD = 10;
 constexpr float T_STOP = 1e-4f;
-
-struct Alpha {
-  float dx, dy, e, raw, alpha;  // alpha == 0 where not live
-};
 
 // f: the coarse tile's fields in shared memory, row stride kc.
 __device__ __forceinline__ bool tile_hit(const float* f, int kc, int k, float tx0,
@@ -76,24 +70,6 @@ __device__ __forceinline__ bool tile_hit(const float* f, int kc, int k, float tx
   const float x = f[k], y = f[kc + k], r = f[11 * kc + k];
   return (x + r >= tx0) && (x - r < tx0 + TILE) && (y + r >= ty0) &&
          (y - r < ty0 + TILE);
-}
-
-__device__ __forceinline__ Alpha cand_alpha(const float* f, int kc, int k, float gx,
-                                            float gy, float alpha_min,
-                                            float alpha_max) {
-  Alpha a;
-  a.dx = __fsub_rn(f[k], gx);
-  a.dy = __fsub_rn(f[kc + k], gy);
-  const float ca = f[2 * kc + k], cb = f[3 * kc + k], cc = f[4 * kc + k];
-  const float sq = __fadd_rn(__fmul_rn(__fmul_rn(ca, a.dx), a.dx),
-                             __fmul_rn(__fmul_rn(cc, a.dy), a.dy));
-  const float power = __fsub_rn(__fmul_rn(-0.5f, sq), __fmul_rn(__fmul_rn(cb, a.dx), a.dy));
-  a.e = expf(power);
-  a.raw = __fmul_rn(f[5 * kc + k], a.e);
-  const float alpha = fminf(alpha_max, a.raw);
-  const bool live = power <= 0.f && alpha >= alpha_min && f[10 * kc + k] > 0.f;
-  a.alpha = live ? alpha : 0.f;
-  return a;
 }
 
 // Hit flags of every candidate for the fine tile at (tx0, ty0).
@@ -203,8 +179,8 @@ __global__ void __launch_bounds__(PX)
       }
     }
     const float* g = cot + ((size_t)ci * tiles + local) * 8 * PX + tid;
-    const float gr = g[0], gg = g[PX], gb = g[2 * PX], ga = g[3 * PX], gd = g[4 * PX];
-    const float gt_tf = g[5 * PX] * T;
+    // r, g, b, alpha, depth and g_T * T_final
+    const float gv[6] = {g[0], g[PX], g[2 * PX], g[3 * PX], g[4 * PX], g[5 * PX] * T};
 
     // pass 2: blocks back to front
     float S = 0.f;
@@ -221,43 +197,9 @@ __global__ void __launch_bounds__(PX)
       }
       for (int k = b0 + kb - 1; k >= b0; --k) {
         float c[NGRAD];
-#pragma unroll
-        for (int r = 0; r < NGRAD; ++r) c[r] = 0.f;
-        bool live = false;
-        if (hit[k]) {  // uniform
-          const Alpha a = cand_alpha(f, kc, k, gx, gy, alpha_min, alpha_max);
-          if (a.alpha > 0.f) {
-            live = true;
-            const float t_k = tk[(k - b0) * PX + tid];
-            const float w = a.alpha * t_k;
-            const float dw = gr * f[6 * kc + k] + gg * f[7 * kc + k] + gb * f[8 * kc + k] +
-                             gd * f[9 * kc + k] + ga;
-            const float dalpha = dw * t_k - (S + gt_tf) / (1.f - a.alpha);
-            S += dw * w;
-            if (a.raw <= alpha_max) {
-              const float dop = dalpha * a.e, dpow = dalpha * a.raw;
-              const float fa = f[2 * kc + k], fb = f[3 * kc + k], fc = f[4 * kc + k];
-              c[0] = dpow * (-fa * a.dx - fb * a.dy);
-              c[1] = dpow * (-fc * a.dy - fb * a.dx);
-              c[2] = dpow * (-0.5f * a.dx * a.dx);
-              c[3] = dpow * (-a.dx * a.dy);
-              c[4] = dpow * (-0.5f * a.dy * a.dy);
-              c[5] = dop;
-            }
-            c[6] = w * gr;
-            c[7] = w * gg;
-            c[8] = w * gb;
-            c[9] = w * gd;
-          }
-        }
-        if (__any_sync(0xffffffffu, live)) {
-#pragma unroll
-          for (int r = 0; r < NGRAD; ++r) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              c[r] += __shfl_xor_sync(0xffffffffu, c[r], off);
-          }
-        }
+        const bool live = cand_grads(hit[k], f, kc, k, gx, gy, alpha_min, alpha_max,
+                                     tk[(k - b0) * PX + tid], gv, S, c);
+        warp_sum(c, live);
         if (lane == 0) {
 #pragma unroll
           for (int r = 0; r < NGRAD; ++r) red[(warp * NGRAD + r) * KB + (k - b0)] = c[r];

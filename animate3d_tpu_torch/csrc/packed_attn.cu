@@ -2,7 +2,10 @@
 //
 // Replaces: animate3d_tpu/ops/attention.py::_packed_padded_kernel, reached
 // through packed_temporal_flash_padded (the motion modules' temporal
-// attention: thousands of independent 16-frame sequences).
+// attention: thousands of independent 16-frame sequences), and
+// animate3d_tpu/ops/attention.py::_packed_temporal_kernel (kernel F, the same
+// function in the unpadded layout, reached under attention_backend
+// "packed_flash" at every head width the motion modules use: 40, 80, 160).
 //
 // Computes, for each sequence of S tokens and each head, softmax(q k^T *
 // scale) v with the TPU kernel's numerics: the scale is applied after the
@@ -185,16 +188,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace
 
 // q/k/v/out: (B, S, H*D) bf16 with token stride *_ld (elements); S in
-// {8, 16, 32}; D a multiple of 8 with D <= 48 or 64 < D <= 80.
+// {2, 4, 8, 16, 32}; D a multiple of 8 with D <= 48 or 64 < D <= 80, or
+// 144 < D <= 160 at S <= 16 (the 160-wide heads of the 1280-channel
+// motion modules; a 32-token tile of them is over the shared memory).
 extern "C" int packed_attn(const void* q, const void* k, const void* v, void* out,
                            int B, int S, int H, int D, long long q_ld,
                            long long k_ld, long long v_ld, long long o_ld,
                            float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int DP = (D + 15) / 16 * 16;
-  if (S == 8 || S == 16) {
+  if (S == 2 || S == 4 || S == 8 || S == 16) {
     if (DP == 48) return launch<16, 48>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
     if (DP == 80) return launch<16, 80>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
+    if (DP == 160) return launch<16, 160>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
   } else if (S == 32) {
     if (DP == 48) return launch<32, 48>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
     if (DP == 80) return launch<32, 80>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);

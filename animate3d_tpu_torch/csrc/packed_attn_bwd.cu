@@ -24,7 +24,7 @@
 // S <= 16) with f32 accumulation: S and dP through a (tile x tile) f32
 // scratch, P and dS as bf16 tiles, o and the three gradients through one
 // (tile x D) f32 scratch before their bf16 stores. Sequences shorter than
-// the tile (S = 8) are masked to the block diagonal as in the forward.
+// the tile (S < 16) are masked to the block diagonal as in the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,8 +220,9 @@ int launch(const void* q, const void* k, const void* v, const void* g, void* dq,
 }  // namespace
 
 // q/k/v/g: (B, S, H*D) bf16 with token stride *_ld (elements); dq/dk/dv:
-// (B, S, H*D) bf16 with token stride d_ld. S in {8, 16, 32}; D a multiple
-// of 8 with D <= 48 or 64 < D <= 80.
+// (B, S, H*D) bf16 with token stride d_ld. S in {2, 4, 8, 16, 32}; D a
+// multiple of 8 with D <= 48 or 64 < D <= 80, or 144 < D <= 160 at S <= 16
+// (the backward of kernel F's route at the 160-wide heads).
 extern "C" int packed_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                                void* dq, void* dk, void* dv, int B, int S, int H, int D,
                                long long q_ld, long long k_ld, long long v_ld, long long g_ld,
@@ -230,9 +231,10 @@ extern "C" int packed_attn_bwd(const void* q, const void* k, const void* v, cons
   const int DP = (D + 15) / 16 * 16;
 #define A3D_LAUNCH(TS, DPC) \
   return launch<TS, DPC>(q, k, v, g, dq, dk, dv, B, S, H, D, q_ld, k_ld, v_ld, g_ld, d_ld, scale, s)
-  if (S == 8 || S == 16) {
+  if (S == 2 || S == 4 || S == 8 || S == 16) {
     if (DP == 48) A3D_LAUNCH(16, 48);
     if (DP == 80) A3D_LAUNCH(16, 80);
+    if (DP == 160) A3D_LAUNCH(16, 160);
   } else if (S == 32) {
     if (DP == 48) A3D_LAUNCH(32, 48);
     if (DP == 80) A3D_LAUNCH(32, 80);

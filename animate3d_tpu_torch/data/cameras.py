@@ -1,9 +1,11 @@
 """Camera batches (host-side NumPy): the part of
-``animate3d_tpu/data/cameras.py`` stage-1 reconstruction uses.
+``animate3d_tpu/data/cameras.py`` stage 1 and its evaluation use.
 
 ``fixed_view_cameras`` is the multi-image dataset's 4 training views x F
 frames (elevation 15°, azimuths 0/90/180/270, distance 3, fovy 40°),
-view-major, with ``timestamps = linspace(-1, 1, F)`` per view.
+view-major, with ``timestamps = linspace(-1, 1, F)`` per view. The
+evaluation batches: :func:`val_orbit_cameras` (the ``--validate`` orbit
+video) and :func:`testset_grid_cameras` (the ``testset`` metrics grid).
 :func:`gs_cameras_from_batch` turns a batch into the rasterizer's stacked
 camera tensors. The batch holds what the rasterizer and the loss read; the
 reference's rays and MVP matrices, which only the random-camera sampler's
@@ -43,13 +45,55 @@ def fixed_view_cameras(elevation_deg: float = 15.0,
                        width: int = 256, total_frame: int = 16) -> Dict[str, np.ndarray]:
     """The fixed training views x F frames, view-major."""
     nv = len(azimuths_deg)
-    elev = np.repeat(np.full(nv, elevation_deg), total_frame)
-    azim = np.repeat(np.asarray(azimuths_deg, np.float64), total_frame)
+    return _view_major(np.full(nv, elevation_deg), np.asarray(azimuths_deg, np.float64),
+                       distance, fovy_deg, height, width, total_frame)
+
+
+def val_orbit_cameras(n_views: int = 120, elevation_deg: float = 15.0, distance: float = 3.0,
+                      fovy_deg: float = 40.0, height: int = 512, width: int = 512,
+                      total_frame: int = 16) -> Dict[str, np.ndarray]:
+    """The validation orbit video: the azimuth sweeps 0 → 360° over
+    ``n_views`` frames while the animation time cycles through the F
+    frames in lockstep."""
+    azim = np.linspace(0.0, 360.0, n_views, endpoint=False)
+    elev = np.full(n_views, elevation_deg)
+    dist = np.full(n_views, distance)
+    c2w = camu.look_at_c2w(camu.spherical_camera_position(elev, azim, dist))
+    timestamps = np.linspace(-1.0, 1.0, total_frame)[np.arange(n_views) % total_frame]
+    return _camera_batch(c2w, np.full(n_views, fovy_deg), height, width, timestamps, elev, azim,
+                         dist)
+
+
+def testset_grid_cameras(elevations_deg: Tuple[float, ...] = (15.0, 0.0, 30.0),
+                         azimuth_sets_deg: Tuple[Tuple[float, ...], ...] = (
+                             (0.0, 90.0, 180.0, 270.0), (30.0, 120.0, 210.0, 300.0),
+                             (-45.0, 45.0, 135.0, 225.0)),
+                         distance: float = 3.0, fovy_deg: float = 40.0, height: int = 512,
+                         width: int = 512, total_frame: int = 16) -> Dict[str, np.ndarray]:
+    """The 3-elevation x 4-azimuth evaluation grid (the paper-metrics
+    surface), view-major x F frames: each elevation is paired with its own
+    azimuth set, not a Cartesian product."""
+    if len(azimuth_sets_deg) != len(elevations_deg):
+        raise ValueError(
+            f"eval_azimuth_deg needs one azimuth set per elevation "
+            f"({len(elevations_deg)} elevations, {len(azimuth_sets_deg)} sets)")
+    views = [(e, a) for e, az in zip(elevations_deg, azimuth_sets_deg) for a in az]
+    return _view_major(np.asarray([v[0] for v in views], np.float64),
+                       np.asarray([v[1] for v in views], np.float64), distance, fovy_deg,
+                       height, width, total_frame)
+
+
+def _view_major(elev1, azim1, distance, fovy_deg, height, width, total_frame):
+    """Views (elevation, azimuth) x F frames, view-major, timestamps
+    linspace(-1, 1, F) per view."""
+    nv = len(azim1)
+    elev = np.repeat(elev1, total_frame)
+    azim = np.repeat(azim1, total_frame)
     dist = np.full(nv * total_frame, distance)
     c2w = camu.look_at_c2w(camu.spherical_camera_position(elev, azim, dist))
-    fovy = np.full(nv * total_frame, fovy_deg)
     timestamps = np.tile(np.linspace(-1.0, 1.0, total_frame), nv)
-    return _camera_batch(c2w, fovy, height, width, timestamps, elev, azim, dist)
+    return _camera_batch(c2w, np.full(nv * total_frame, fovy_deg), height, width, timestamps,
+                         elev, azim, dist)
 
 
 def gs_cameras_from_batch(batch: Dict[str, np.ndarray], znear: float = 0.1,

@@ -8,8 +8,10 @@ failed build or load raises; nothing here runs at import time.
 
 ``LAUNCHES`` counts kernel launches by (counter name, shape key): each
 wrapper adds one right where it launches its kernel, and nowhere else.
-A library may hold more than one kernel (``flash_bwd``: dq and dkv), so the
-counter names (``COUNTERS``) are the kernels', not the libraries'.
+A library may hold more than one kernel (``flash_bwd``: dq and dkv), and one
+kernel may serve two TPU kernels' routes (``packed_attn`` launched under
+``attention_backend("packed_flash")`` counts as ``packed_temporal``), so the
+counter names (``COUNTERS``) are the routes', not the libraries'.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd", "packed_attn_bwd",
-           "composite_coarse")
+           "composite_coarse", "composite_fields")
 COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
-            "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd")
+            "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd",
+            "composite_fields_fwd", "composite_fields_bwd", "packed_temporal")
 
 LAUNCHES: "collections.Counter[tuple]" = collections.Counter()
 

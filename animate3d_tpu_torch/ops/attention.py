@@ -20,14 +20,20 @@ heads, q ``(B, Sq, H*D)`` and k/v ``(B', Sk, H*D)``, like the JAX module.
 site runs through :class:`FlashAttentionFn` (A forward, D backward) or
 :class:`PackedAttentionFn` (B forward, E backward); under
 ``routing.plain_ops()`` both directions take the kernels' plain versions.
+:func:`attention_backend` forces a backend for the calls in its scope, as
+the JAX package's does (:func:`forced_plan`); under ``"packed_flash"`` kernel
+B computes the function of the TPU's ``packed_temporal_flash`` (kernel F,
+the unpadded-layout packed forward), counted as ``packed_temporal``.
 The wrappers take their plain version only for CPU tensors; a CUDA tensor
 goes to the kernel or raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -296,22 +302,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-PACKED_SEQ = (8, 16, 32)
-PACKED_HEAD_DIMS = (40, 80)
+PACKED_SEQ = (2, 4, 8, 16, 32)  # S dividing 128 up to 32; S = 1 is v itself
+PACKED_HEAD_DIMS = (40, 80)  # the auto route's packed head widths
+
+
+def packed_kernel_takes(seq: int, head_dim: int) -> bool:
+    """Whether kernels B and E take sequences of ``seq`` tokens with heads
+    ``head_dim`` wide: D 40 or 80 at every S of ``PACKED_SEQ``, and D 160
+    (kernel F's route at the 1280-channel motion modules) at S <= 16."""
+    return seq in PACKED_SEQ and (head_dim in PACKED_HEAD_DIMS or (head_dim == 160
+                                                                   and seq <= 16))
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     num_heads: int, scale: float) -> torch.Tensor:
+                     num_heads: int, scale: float, counter: str = "packed_attn") -> torch.Tensor:
     """Kernel B: self-attention within each of the B sequences of q/k/v
-    ``(B, S, H*D)``, S in {8, 16, 32}, D in {40, 80}; token rows may be
-    strided but each batch must hold its S rows at one stride."""
+    ``(B, S, H*D)`` at the (S, D) of :func:`packed_kernel_takes`; token rows may be
+    strided but each batch must hold its S rows at one stride. The launch
+    counts under ``counter``: ``packed_attn`` (the TPU's padded packed
+    kernel) or ``packed_temporal`` (its unpadded ``packed_temporal_flash``)."""
     b, s, c = q.shape
     d = c // num_heads
     if not (q.shape == k.shape == v.shape):
         raise ValueError("packed_attention: q/k/v shapes differ")
     if q.device.type == "cpu":
         return packed_small_attention(q, k, v, num_heads, scale)
-    if s not in PACKED_SEQ or d not in PACKED_HEAD_DIMS or c != num_heads * d:
+    if not packed_kernel_takes(s, d) or c != num_heads * d:
         raise ValueError(f"packed_attention: unsupported S={s}, D={d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_merged(f"packed_attention {name}", x, d, q.device)
@@ -323,7 +339,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       b, s, num_heads, d, q.stride(1), k.stride(1), v.stride(1),
                       out.stride(1), scale, _build.stream_ptr(q.device))
     _build.check("packed_attn", rc)
-    _build.LAUNCHES["packed_attn", (b, s, c)] += 1
+    _build.LAUNCHES[counter, (b, s, c)] += 1
     return out
 
 
@@ -339,7 +355,7 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = g.to(q.dtype)
     if q.device.type == "cpu":
         return _packed_bwd_plain(q, k, v, g, num_heads, scale)
-    if s not in PACKED_SEQ or d not in PACKED_HEAD_DIMS or c != num_heads * d:
+    if not packed_kernel_takes(s, d) or c != num_heads * d:
         raise ValueError(f"packed_attention_bwd: unsupported S={s}, D={d}")
     for name, x in (("q", q), ("k", k), ("v", v), ("g", g)):
         _check_merged(f"packed_attention_bwd {name}", x, d, q.device)
@@ -387,14 +403,17 @@ class FlashAttentionFn(torch.autograd.Function):
 
 class PackedAttentionFn(torch.autograd.Function):
     """Kernel B forward, kernel E backward (their plain versions when
-    ``kernels`` is False); saves q, k, v."""
+    ``kernels`` is False); saves q, k, v. B's launch counts under
+    ``counter``: ``packed_attn``, or ``packed_temporal`` on kernel F's route."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads: int, scale: float, kernels: bool):
-        fwd = packed_attention if kernels else packed_small_attention
+    def forward(ctx, q, k, v, num_heads: int, scale: float, kernels: bool,
+                counter: str = "packed_attn"):
         ctx.save_for_backward(q, k, v)
         ctx.args = (num_heads, scale, kernels)
-        return fwd(q, k, v, num_heads, scale)
+        if kernels:
+            return packed_attention(q, k, v, num_heads, scale, counter)
+        return packed_small_attention(q, k, v, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -403,14 +422,14 @@ class PackedAttentionFn(torch.autograd.Function):
         bwd = packed_attention_bwd if kernels else _packed_bwd_plain
         grads = bwd(q, k, v, g.to(q.dtype).contiguous(), num_heads, scale)
         return tuple(x if need else None
-                     for x, need in zip(grads, ctx.needs_input_grad[:3])) + (None,) * 3
+                     for x, need in zip(grads, ctx.needs_input_grad[:3])) + (None,) * 4
 
 
 def packed_plan(batch: int, seq: int, channels: int, num_heads: int) -> bool:
     """Shape predicate of the TPU's ``padded_packed_plan`` (and of kernel
     B's support): short self-attention sequences dividing 128, enough of
-    them to pack twice, head dim below 128 — restricted to what kernel B
-    takes (S in {8, 16, 32}, D in {40, 80})."""
+    them to pack twice, head dim below 128 — restricted to D in {40, 80},
+    the widths of the motion modules below 128."""
     d = channels // num_heads
     return (d < 128 and seq <= 32 and 128 % seq == 0
             and batch >= 2 * (128 // seq)
@@ -441,6 +460,58 @@ def attention_plan(batch: int, sq: int, sk: int, channels: int,
     return "plain"
 
 
+BACKENDS = ("auto", "xla", "flash", "packed", "packed_flash")
+_override = threading.local()
+
+
+@contextlib.contextmanager
+def attention_backend(name: str):
+    """Force a backend for every :func:`multi_head_attention` call in this
+    scope (this thread): the JAX package's ``attention_backend``. The route
+    is fixed at forward time, so the backward follows it."""
+    if name not in BACKENDS:
+        raise ValueError(f"attention_backend: {name!r} is not one of {BACKENDS}")
+    prev = getattr(_override, "name", None)
+    _override.name = name
+    try:
+        yield
+    finally:
+        _override.name = prev
+
+
+def forced_plan(batch: int, sq: int, sk: int, channels: int, num_heads: int,
+                self_attention: bool, same_shapes: bool, on_cuda: bool, backend: str) -> str:
+    """A site's route under a forced backend, as the JAX package routes it
+    (``padded_packed_plan`` / ``padded_flash_plan`` under the override, then
+    ``multi_head_attention(backend=...)``; "on TPU" read as "on CUDA"):
+
+    * ``flash``: kernel B's route for the padded packed plan's temporal
+      shapes (the pinned quirk: a forced flash still packs them), else
+      "flash" (kernel A, whose wrapper raises on CUDA at a head width over
+      128) where Sk is a multiple of 512, else "plain";
+    * ``packed``: "packed_plain" (B's plain version, the XLA packed path) on
+      packable shapes (equal q/k/v, S <= 32, at least two packs), else
+      "plain";
+    * ``packed_flash``: "packed_flash" (kernel B as F, whose wrapper raises
+      on an (S, D) that :func:`packed_kernel_takes` refuses) on packable
+      shapes on CUDA with ``128 % S == 0``, "packed_plain" on other packable
+      shapes, else "plain";
+    * ``xla``: "plain".
+
+    Where the JAX package runs a kernel, so does the port on CUDA, or it
+    raises: it never takes a plain version there."""
+    if backend == "flash":
+        if on_cuda and self_attention and packed_plan(batch, sq, channels, num_heads):
+            return "packed"
+        return "flash" if sk % _FLASH_BLOCK_K == 0 else "plain"
+    packable = same_shapes and sq <= 32 and batch >= 2 * (128 // sq)
+    if backend in ("packed", "packed_flash") and packable:
+        if backend == "packed_flash" and on_cuda and 128 % sq == 0:
+            return "packed_flash"
+        return "packed_plain"
+    return "plain"
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int, scale: Optional[float] = None,
                          kv_group: int = 1,
@@ -451,11 +522,21 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1] // num_heads
     if scale is None:
         scale = d ** -0.5
-    plan = attention_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[-1],
-                          num_heads, self_attention, q.device.type == "cuda")
+    backend = getattr(_override, "name", None) or "auto"
+    on_cuda = q.device.type == "cuda"
+    if backend == "auto":
+        plan = attention_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[-1],
+                              num_heads, self_attention, on_cuda)
+    else:
+        plan = forced_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[-1], num_heads,
+                           self_attention, q.shape == k.shape == v.shape, on_cuda, backend)
     kernels = routing.kernels_enabled(q.device)
     if plan == "packed":
         return PackedAttentionFn.apply(q, k, v, num_heads, scale, kernels)
+    if plan == "packed_flash":
+        return PackedAttentionFn.apply(q, k, v, num_heads, scale, kernels, "packed_temporal")
+    if plan == "packed_plain":
+        return PackedAttentionFn.apply(q, k, v, num_heads, scale, False)
     if plan == "flash":
         return FlashAttentionFn.apply(q, k, v, num_heads, scale, kv_group, kernels)
     if kv_group > 1:

@@ -1,25 +1,34 @@
-"""Differentiable 3D gaussian-splat rasterizer, coarse-direct route.
+"""Differentiable 3D gaussian-splat rasterizer: the port of
+``animate3d_tpu/ops/rasterize.py`` and of the compositing kernels of
+``animate3d_tpu/ops/rasterize_pallas.py``.
 
-Port of ``animate3d_tpu/ops/rasterize.py`` for the route the recon stage
-takes at its sizes (more than ``coarse``² fine tiles, ``:595-634``):
+Every route first projects the gaussians (EWA splatting: view transform,
+perspective Jacobian, 2D covariance + 0.3 px dilation, 3-sigma radius).
+Binning is an exact ``torch.topk`` (the TPU's ``approx_max_k`` is a fitting
+choice: parity is held against the JAX package with
+``approx_binning=False``). Then, as the JAX package routes (``:593-650``):
 
-  1. project every gaussian (EWA splatting: view transform, perspective
-     Jacobian, 2D covariance + 0.3 px dilation, 3-sigma radius);
-  2. per coarse tile of ``coarse`` x ``coarse`` fine 16x16 tiles, the
-     ``coarse_k`` depth-nearest overlapping gaussians, front to back, by an
-     exact ``torch.topk`` (the TPU's ``approx_max_k`` is a fitting choice:
-     parity is held against the JAX package with ``approx_binning=False``);
-  3. the candidates' fields ``(n_ct, 12, kc)`` (10 differentiable rows, the
-     stop-grad ``ok`` and 3-sigma radius rows, kc padded to a multiple of
-     128) composited by kernel H (``csrc/composite_coarse.cu``, forward and
-     backward, through :class:`CompositeCoarseFn`) into ``(n_ct, cs², 8,
-     256)`` planes, untiled and put over the background.
+* **coarse-direct** (more than ``coarse``² fine tiles): per coarse tile of
+  ``coarse`` x ``coarse`` fine 16x16 tiles, the ``coarse_k`` depth-nearest
+  overlapping gaussians front to back; their fields ``(n_ct, 12, kc)`` (10
+  differentiable rows, the stop-grad ``ok`` and 3-sigma radius rows, kc
+  padded to a multiple of 128) composited by kernel H
+  (``csrc/composite_coarse.cu``, :class:`CompositeCoarseFn`);
+* **fields** (``coarse``² fine tiles or fewer, or ``coarse == 0``): per fine
+  tile, the ``max_per_tile`` depth-nearest overlapping gaussians
+  (:func:`_tile_select`), packed as ``(T, 12, K)`` fields
+  (:func:`pack_fields`, row 11 zero) and composited by kernel G
+  (``csrc/composite_fields.cu``, :class:`CompositeFieldsFn`): every
+  candidate, no early stop, no tile gate.
 
-The views are a batch dimension: one H launch per direction covers every
-coarse tile of every view in the call. An image of ``coarse``² tiles or
-fewer is the fields compositor's route (kernel G), not ported yet: it
-raises. CPU tensors take H's plain versions; CUDA tensors take the kernel,
-or the plain versions inside :func:`routing.plain_ops`.
+The JAX package's XLA route (``backend="xla"``: hierarchical binning and a
+compositor in XLA ops, the route it takes off the TPU) is not ported: no
+entry point of the port selects it.
+
+The views are a batch dimension: one kernel launch per direction covers
+every tile of every view in the call. CPU tensors take the kernels' plain
+versions; CUDA tensors take the kernels, or the plain versions inside
+:func:`routing.plain_ops`.
 """
 
 from __future__ import annotations
@@ -38,15 +47,16 @@ NFIELD = 12
 _KB = 128  # candidate block of the early stop
 _T_STOP = 1e-4
 _SELECT_ELEMS = 1 << 25  # (view, coarse tile, gaussian) scores per top-k call
-_PLAIN_ELEMS = 1 << 24  # (pixel, candidate) elements per chunk of H's plain versions
+_PLAIN_ELEMS = 1 << 24  # (pixel, candidate) elements per chunk of the plain versions
 
 
 class RasterConfig(NamedTuple):
-    """The coarse-direct route's parameters (``animate3d_tpu``'s values)."""
+    """The rasterizer's parameters (``animate3d_tpu``'s values)."""
 
     height: int
     width: int
     tile: int = 16
+    max_per_tile: int = 256  # K of the fields route's per-fine-tile lists
     znear_cull: float = 0.2
     dilate: float = 0.3
     alpha_min: float = 1.0 / 255.0
@@ -186,8 +196,54 @@ def _coarse_select(proj: Projected, cfg: RasterConfig):
             torch.stack([c_x0, c_y0], dim=-1))
 
 
+def _tile_origins(cfg: RasterConfig, device) -> torch.Tensor:
+    """(tiles_y · tiles_x, 2) f32 pixel origins of the fine tiles, row-major."""
+    ids = torch.arange(cfg.tiles_y * cfg.tiles_x, device=device)
+    return torch.stack([((ids % cfg.tiles_x) * cfg.tile).float(),
+                        ((ids // cfg.tiles_x) * cfg.tile).float()], dim=-1)
+
+
+def _pad_k(idx: torch.Tensor, ok: torch.Tensor, k: int):
+    """Pads (B, T, kk) lists to k candidates (index 0, ``ok`` False)."""
+    pad = k - idx.shape[-1]
+    if pad:
+        idx = torch.nn.functional.pad(idx, (0, pad))
+        ok = torch.nn.functional.pad(ok, (0, pad))
+    return idx, ok
+
+
+@torch.no_grad()
+def _tile_select(proj: Projected, cfg: RasterConfig):
+    """Per view and fine tile, the ``max_per_tile`` depth-nearest overlapping
+    gaussians front to back, one exact top-k over all N (``:385-436``).
+    → (idx (B, T, K) int64, ok (B, T, K) bool, overflow () int: gaussian x
+    tile pairs past the K cap)."""
+    b, n = proj.depth.shape
+    big = 1e10
+    depth = torch.where(proj.valid, proj.depth, torch.full_like(proj.depth, big))
+    x, y, r = proj.mean2d[..., 0], proj.mean2d[..., 1], proj.radius
+    org = _tile_origins(cfg, depth.device)
+    tx0, ty0, t = org[None, :, 0, None], org[None, :, 1, None], cfg.tile
+    kk = min(cfg.max_per_tile, n)
+    step = max(1, _SELECT_ELEMS // max(org.shape[0] * n, 1))
+    idx, ok, count = [], [], []
+    for v0 in range(0, b, step):
+        sl = slice(v0, v0 + step)
+        xv, yv, rv = x[sl, None, :], y[sl, None, :], r[sl, None, :]
+        ov = ((xv + rv >= tx0) & (xv - rv < tx0 + t) & (yv + rv >= ty0) & (yv - rv < ty0 + t)
+              & proj.valid[sl, None, :])
+        score = torch.where(ov, depth[sl, None, :], torch.full_like(depth[sl, None, :], big))
+        neg, i = torch.topk(-score, kk, dim=-1)
+        idx.append(i)
+        ok.append((-neg) < big)
+        count.append(ov.sum(-1))
+    count = torch.cat(count)
+    idx, ok = _pad_k(torch.cat(idx), torch.cat(ok), cfg.max_per_tile)
+    return idx, ok, torch.clamp(count - kk, min=0).sum()
+
+
 # ---------------------------------------------------------------------------
-# Kernel H: plain versions (the CPU path and the card's reference)
+# Kernels H and G: plain versions (the CPU path and the card's reference)
 
 
 def _tile_hit(rows: torch.Tensor, tx0: torch.Tensor, ty0: torch.Tensor, tile: int):
@@ -357,14 +413,18 @@ def _h_fns():
     return fwd, bwd
 
 
-def _check_h(name: str, tensors, kc: int, tile: int) -> None:
+def _check_f32(name: str, tensors, tile: int, kernel: str) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{name}: need contiguous float32 tensors on one device, got "
                              f"{t.dtype} on {t.device} (contiguous {t.is_contiguous()})")
     if tile != 16:
-        raise ValueError(f"{name}: kernel H composites 16x16 fine tiles, got tile={tile}")
+        raise ValueError(f"{name}: kernel {kernel} composites 16x16 fine tiles, got tile={tile}")
+
+
+def _check_h(name: str, tensors, kc: int, tile: int) -> None:
+    _check_f32(name, tensors, tile, "H")
     if kc > 4 * _KB or (kc > _KB and kc % _KB):
         raise ValueError(f"{name}: kc={kc} must be <= 128, or a multiple of 128 up to 512")
 
@@ -440,13 +500,200 @@ class CompositeCoarseFn(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# Kernel G: the fields route's compositor (plain versions and CUDA wrappers)
+
+_G_MAX_K = 1024  # the kernel's shared-memory budget
+
+
+def _composite_fields_plain(fields: torch.Tensor, origins: torch.Tensor, tile: int = 16,
+                            alpha_min: float = 1.0 / 255.0, alpha_max: float = 0.99,
+                            count_pairs: bool = False):
+    """Kernel G's forward in torch ops (``composite_fields_pallas``), chunked
+    over tiles: fields (T, 12, K), origins (T, 2) → planes (T, 8, tile²)
+    ``[r, g, b, alpha, depth, T_final, 0, 0]``; every candidate composited
+    front to back, no early stop and no tile gate. With ``count_pairs``,
+    also (pairs, live pairs): every (pixel, candidate) pair, and those with
+    a live alpha."""
+    n, _, k = fields.shape
+    kb = min(k, _KB)
+    px = tile * tile
+    out = fields.new_zeros((n, 8, px))
+    live_pairs = 0
+    step = _chunk(1, tile, kb)
+    for c0 in range(0, n, step):
+        f = fields[c0:c0 + step]
+        _, _, gx, gy = _pixel_grid(origins[c0:c0 + step], tile, 1)  # (C, 1, PX)
+        t = torch.ones_like(gx)
+        rgbd = gx.new_zeros(gx.shape + (4,))
+        acc = torch.zeros_like(gx)
+        for b0 in range(0, k, kb):
+            rows = f[:, :, b0:b0 + kb]
+            alpha, _ = _block_alpha(rows, gx, gy, alpha_min, alpha_max)
+            if count_pairs:
+                live_pairs += int((alpha > 0).sum())
+            excl, tot = _excl_prod(alpha)
+            w = alpha * excl * t[..., None]
+            rgbd = rgbd + torch.einsum("clpk,cfk->clpf", w, rows[:, 6:10])
+            acc = acc + w.sum(-1)
+            t = t * tot
+        o = out[c0:c0 + step]
+        o[:, 0:3] = rgbd[:, 0, :, 0:3].transpose(-1, -2)
+        o[:, 3] = acc[:, 0]
+        o[:, 4] = rgbd[:, 0, :, 3]
+        o[:, 5] = t[:, 0]
+    return (out, n * px * k, live_pairs) if count_pairs else out
+
+
+def _composite_fields_bwd_plain(fields: torch.Tensor, origins: torch.Tensor,
+                                cot: torch.Tensor, tile: int = 16,
+                                alpha_min: float = 1.0 / 255.0,
+                                alpha_max: float = 0.99) -> torch.Tensor:
+    """Kernel G's backward in torch ops (``composite_fields_pallas_bwd``'s
+    hand-derived formulas): cot (T, 8, tile²) → grad fields (T, 12, K),
+    rows 10-11 zero. ``dalpha = dw·T_k − (S_k + g_T·T_final) / (1 − alpha)``
+    with S_k the suffix sum of dw·w behind candidate k; the gradient passes
+    the 0.99 clamp only where ``raw ≤ 0.99``."""
+    n, _, k = fields.shape
+    kb = min(k, _KB)
+    grad = torch.zeros_like(fields)
+    step = _chunk(1, tile, kb)
+    for c0 in range(0, n, step):
+        f = fields[c0:c0 + step]
+        _, _, gx, gy = _pixel_grid(origins[c0:c0 + step], tile, 1)  # (C, 1, PX)
+        # pass 1: forward recompute of alpha and T before each candidate
+        t = torch.ones_like(gx)
+        alphas, tks = [], []
+        for b0 in range(0, k, kb):
+            alpha, _ = _block_alpha(f[:, :, b0:b0 + kb], gx, gy, alpha_min, alpha_max)
+            excl, tot = _excl_prod(alpha)
+            alphas.append(alpha)
+            tks.append(excl * t[..., None])
+            t = t * tot
+        c = cot[c0:c0 + step, None]
+        gr, gg, gb, ga, gd, g_t = (c[:, :, i, :, None] for i in range(6))
+        g_t_tf = g_t * t[..., None]
+        # pass 2: blocks back to front, suffix sums of dw * w
+        s = torch.zeros_like(gx)[..., None]
+        for bi in reversed(range(len(alphas))):
+            b0 = bi * kb
+            rows = f[:, :, b0:b0 + kb]
+            alpha, t_k = alphas[bi], tks[bi]
+            w = alpha * t_k
+            r = lambda i: rows[:, None, None, i]
+            dw = gr * r(6) + gg * r(7) + gb * r(8) + gd * r(9) + ga
+            dww = dw * w
+            suffix = torch.flip(torch.cumsum(torch.flip(dww, (-1,)), -1), (-1,))
+            s_k = suffix - dww + s
+            dalpha = dw * t_k - (s_k + g_t_tf) / (1.0 - alpha)
+            _, (dx, dy, ca, cb, cc, e, raw, live) = _block_alpha(rows, gx, gy, alpha_min,
+                                                                 alpha_max)
+            pass_th = (live & (raw <= alpha_max)).to(alpha.dtype)
+            dop = dalpha * e * pass_th
+            dpow = dalpha * raw * pass_th
+            red = lambda v: v.sum(2).sum(1)  # over pixels (one tile)
+            grad[c0:c0 + step, 0:10, b0:b0 + kb] = torch.stack([
+                red(dpow * (-ca * dx - cb * dy)), red(dpow * (-cc * dy - cb * dx)),
+                red(dpow * (-0.5 * dx * dx)), red(dpow * (-dx * dy)),
+                red(dpow * (-0.5 * dy * dy)), red(dop),
+                red(w * gr), red(w * gg), red(w * gb), red(w * gd)], dim=1)
+            s = s + suffix[..., :1]
+    return grad
+
+
+@functools.lru_cache(maxsize=None)
+def _g_fns():
+    lib = _build.library("composite_fields")
+    fwd, bwd = lib.composite_fields_fwd, lib.composite_fields_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _check_g(name: str, tensors, k: int, tile: int) -> None:
+    _check_f32(name, tensors, tile, "G")
+    if k > _G_MAX_K or (k > _KB and k % _KB):
+        raise ValueError(f"{name}: K={k} must be <= 128, or a multiple of 128 up to "
+                         f"{_G_MAX_K}")
+
+
+def composite_fields(fields: torch.Tensor, origins: torch.Tensor, tile: int = 16,
+                     alpha_min: float = 1.0 / 255.0, alpha_max: float = 0.99) -> torch.Tensor:
+    """Kernel G forward: planes (T, 8, 256). CPU tensors take the plain
+    version."""
+    if fields.device.type == "cpu":
+        return _composite_fields_plain(fields, origins, tile, alpha_min, alpha_max)
+    t, nf, k = fields.shape
+    if nf != NFIELD or origins.shape != (t, 2):
+        raise ValueError(f"composite_fields: fields {tuple(fields.shape)} origins "
+                         f"{tuple(origins.shape)}")
+    _check_g("composite_fields", (fields, origins), k, tile)
+    out = torch.empty((t, 8, tile * tile), dtype=torch.float32, device=fields.device)
+    fwd, _ = _g_fns()
+    _build.check("composite_fields", fwd(origins.data_ptr(), fields.data_ptr(), out.data_ptr(),
+                                         t, k, alpha_min, alpha_max,
+                                         _build.stream_ptr(fields.device)))
+    _build.LAUNCHES["composite_fields_fwd", (t, k)] += 1
+    return out
+
+
+def composite_fields_bwd(fields: torch.Tensor, origins: torch.Tensor, cot: torch.Tensor,
+                         tile: int = 16, alpha_min: float = 1.0 / 255.0,
+                         alpha_max: float = 0.99) -> torch.Tensor:
+    """Kernel G backward: grad fields (T, 12, K), rows 10-11 zero. CPU
+    tensors take the plain version."""
+    if fields.device.type == "cpu":
+        return _composite_fields_bwd_plain(fields, origins, cot, tile, alpha_min, alpha_max)
+    t, nf, k = fields.shape
+    if nf != NFIELD or origins.shape != (t, 2) or cot.shape != (t, 8, tile * tile):
+        raise ValueError(f"composite_fields_bwd: fields {tuple(fields.shape)} origins "
+                         f"{tuple(origins.shape)} cot {tuple(cot.shape)}")
+    _check_g("composite_fields_bwd", (fields, origins, cot), k, tile)
+    grad = torch.empty_like(fields)
+    _, bwd = _g_fns()
+    _build.check("composite_fields", bwd(origins.data_ptr(), fields.data_ptr(), cot.data_ptr(),
+                                         grad.data_ptr(), t, k, alpha_min, alpha_max,
+                                         _build.stream_ptr(fields.device)))
+    _build.LAUNCHES["composite_fields_bwd", (t, k)] += 1
+    return grad
+
+
+class CompositeFieldsFn(torch.autograd.Function):
+    """Kernel G forward and backward around the (T, 12, K) field layout, the
+    kernel or the plain versions fixed at forward time as in
+    :class:`CompositeCoarseFn`. The origins get no gradient, nor do the
+    ``ok`` and zero rows."""
+
+    @staticmethod
+    def forward(ctx, fields, origins, tile, alpha_min, alpha_max):
+        ctx.kernel = routing.kernels_enabled(fields.device)
+        ctx.args = (tile, alpha_min, alpha_max)
+        ctx.save_for_backward(fields, origins)
+        if ctx.kernel:
+            return composite_fields(fields, origins, *ctx.args)
+        return _composite_fields_plain(fields, origins, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        fields, origins = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.kernel:
+            grad = composite_fields_bwd(fields, origins, g, *ctx.args)
+        else:
+            grad = _composite_fields_bwd_plain(fields, origins, g, *ctx.args)
+        return grad, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 
 
 class RenderOutput(NamedTuple):
     rgb: torch.Tensor  # (B, H, W, 3)
     depth: torch.Tensor  # (B, H, W)
     alpha: torch.Tensor  # (B, H, W)
-    overflow: torch.Tensor  # () int: gaussian x coarse-tile pairs past coarse_k
+    overflow: torch.Tensor  # () int: gaussian x tile pairs past the route's caps
 
 
 def _colors(means3d, camera, shs, colors_precomp, active_sh_degree):
@@ -460,42 +707,94 @@ def _colors(means3d, camera, shs, colors_precomp, active_sh_degree):
     return sh_color(active_sh_degree, shs, dirs)
 
 
+def _project(means3d, scales, rotations, opacity, camera, cfg, shs, colors_precomp,
+             scale_modifier, active_sh_degree):
+    """→ (projection, colors (B, N, 3), opacity (B, N)) of B views."""
+    b, n = means3d.shape[:2]
+    proj = project_gaussians(means3d, build_cov3d(scales, rotations, scale_modifier), camera,
+                             cfg)
+    colors = _colors(means3d, camera, shs, colors_precomp, active_sh_degree)
+    return proj, colors, opacity.reshape(-1, n).expand(b, n)
+
+
+def _gather_fields(proj: Projected, colors, opacity, idx, ok, row11=None) -> torch.Tensor:
+    """Candidate fields (B, M, 12, K) of the (B, M, K) lists ``idx``: rows 0-9
+    gathered (x, y, conic a b c, opacity, rgb, depth; differentiable), row 10
+    ``ok``, row 11 gathered from ``row11`` (B, N) or zero."""
+    b, m, k = idx.shape
+    rows10 = torch.stack([proj.mean2d[..., 0], proj.mean2d[..., 1], proj.conic[..., 0],
+                          proj.conic[..., 1], proj.conic[..., 2], opacity, colors[..., 0],
+                          colors[..., 1], colors[..., 2], proj.depth], dim=1)  # (B, 10, N)
+    flat = idx.reshape(b, 1, m * k)
+    cand = torch.gather(rows10, 2, flat.expand(b, 10, -1)).reshape(b, 10, m, k)
+    last = (torch.zeros_like(cand[:, :1]) if row11 is None
+            else torch.gather(row11, 1, flat[:, 0]).reshape(b, 1, m, k))
+    fields = torch.cat([cand, ok.to(cand.dtype)[:, None], last], dim=1)  # (B, 12, M, K)
+    return fields.permute(0, 2, 1, 3)
+
+
+def pack_fields(proj: Projected, colors: torch.Tensor, opacity: torch.Tensor,
+                idx: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """The fields route's per-tile candidate fields (``rasterize_pallas.py:
+    543-560``): (B, T, K) lists → (B·T, 12, K), rows 0-9 differentiable, row
+    10 ``ok``, row 11 zero (G has no AABB gate)."""
+    b, t, k = idx.shape
+    return _gather_fields(proj, colors, opacity, idx, ok).reshape(b * t, NFIELD, k).contiguous()
+
+
 def coarse_fields(means3d: torch.Tensor, scales: torch.Tensor, rotations: torch.Tensor,
                   opacity: torch.Tensor, camera: GSCameraArrays, cfg: RasterConfig,
                   shs: Optional[torch.Tensor] = None,
                   colors_precomp: Optional[torch.Tensor] = None, scale_modifier: float = 1.0,
                   active_sh_degree: int = 0):
-    """Projection, binning and field assembly of B views (``:595-623``):
-    → (fields (B·n_ct, 12, kc) with kc padded to a multiple of 128, coarse
-    origins (B·n_ct, 2), projection, overflow count). Rows 0-9 are
-    differentiable (gathered by the binning's indices); ``ok`` and the
-    3-sigma radius are not."""
-    if cfg.coarse <= 0 or cfg.tiles_x * cfg.tiles_y <= cfg.coarse ** 2:
-        raise NotImplementedError(
-            f"a {cfg.height}x{cfg.width} image has {cfg.tiles_x * cfg.tiles_y} tiles, at most "
-            f"coarse^2 = {cfg.coarse ** 2}: that is the fields compositor's route (TPU kernel G, "
-            "ops/rasterize_pallas.py::_composite_fields_kernel), not ported yet")
-    b, n = means3d.shape[:2]
-    opacity = opacity.reshape(-1, n).expand(b, n)
-    proj = project_gaussians(means3d, build_cov3d(scales, rotations, scale_modifier), camera,
-                             cfg)
-    colors = _colors(means3d, camera, shs, colors_precomp, active_sh_degree)
+    """Projection, binning and field assembly of B views on the
+    coarse-direct route (``:595-623``): → (fields (B·n_ct, 12, kc) with kc
+    padded to a multiple of 128, coarse origins (B·n_ct, 2), projection,
+    overflow count). Rows 0-9 are differentiable (gathered by the binning's
+    indices); ``ok`` and the 3-sigma radius are not."""
+    b = means3d.shape[0]
+    proj, colors, opacity = _project(means3d, scales, rotations, opacity, camera, cfg, shs,
+                                     colors_precomp, scale_modifier, active_sh_degree)
     cidx, cok, c_count, corig = _coarse_select(proj, cfg)
     n_ctv, kc = cidx.shape[1:]
-    rows10 = torch.stack([proj.mean2d[..., 0], proj.mean2d[..., 1], proj.conic[..., 0],
-                          proj.conic[..., 1], proj.conic[..., 2], opacity, colors[..., 0],
-                          colors[..., 1], colors[..., 2], proj.depth], dim=1)  # (B, 10, N)
-    flat = cidx.reshape(b, 1, n_ctv * kc)
-    cand = torch.gather(rows10, 2, flat.expand(b, 10, -1)).reshape(b, 10, n_ctv, kc)
-    rad = torch.gather(proj.radius.detach(), 1, flat[:, 0]).reshape(b, 1, n_ctv, kc)
-    fields = torch.cat([cand, cok.to(cand.dtype)[:, None], rad], dim=1)  # (B, 12, n_ctv, kc)
-    fields = fields.permute(0, 2, 1, 3)
+    fields = _gather_fields(proj, colors, opacity, cidx, cok, proj.radius.detach())
     pad = (-kc) % _KB
     if pad:
         fields = torch.nn.functional.pad(fields, (0, pad))
     fields = fields.reshape(b * n_ctv, NFIELD, kc + pad).contiguous()
     overflow = torch.clamp(c_count - kc, min=0).sum()
     return fields, corig.repeat(b, 1).contiguous(), proj, overflow
+
+
+def tile_fields(means3d: torch.Tensor, scales: torch.Tensor, rotations: torch.Tensor,
+                opacity: torch.Tensor, camera: GSCameraArrays, cfg: RasterConfig,
+                shs: Optional[torch.Tensor] = None,
+                colors_precomp: Optional[torch.Tensor] = None, scale_modifier: float = 1.0,
+                active_sh_degree: int = 0):
+    """Projection, binning and field assembly of B views on the fields
+    route (``:636-650``): → (fields (B·T, 12, K = max_per_tile), tile
+    origins (B·T, 2), projection, overflow count)."""
+    b = means3d.shape[0]
+    proj, colors, opacity = _project(means3d, scales, rotations, opacity, camera, cfg, shs,
+                                     colors_precomp, scale_modifier, active_sh_degree)
+    idx, ok, overflow = _tile_select(proj, cfg)
+    fields = pack_fields(proj, colors, opacity, idx, ok)
+    return fields, _tile_origins(cfg, idx.device).repeat(b, 1), proj, overflow
+
+
+def _untile(p: torch.Tensor, cfg: RasterConfig, bg: torch.Tensor):
+    """Per-tile planes (B, tiles_y, tiles_x, >= 6, tile, tile) → (rgb (B, H, W,
+    3) with T_final times the background added, depth, alpha)."""
+    b, t = p.shape[0], cfg.tile
+
+    def plane(ch):  # (B, ty, tx, t, t) → (B, H, W)
+        a = p[:, :, :, ch].permute(0, 1, 3, 2, 4)
+        a = a.reshape(b, cfg.tiles_y * t, cfg.tiles_x * t)
+        return a[:, :cfg.height, :cfg.width]
+
+    t_final = plane(5)
+    rgb = torch.stack([plane(i) for i in range(3)], dim=-1) + t_final[..., None] * bg
+    return rgb, plane(4), plane(3)
 
 
 def rasterize(means3d: torch.Tensor, scales: torch.Tensor, rotations: torch.Tensor,
@@ -508,26 +807,25 @@ def rasterize(means3d: torch.Tensor, scales: torch.Tensor, rotations: torch.Tens
     opacity (N,) or (B, N), cameras with B leading; ``shs`` (N, K, 3) or
     ``colors_precomp`` (N, 3) / (B, N, 3). Differentiable in every gaussian
     input. The JAX package's ``rasterize(..., backend="pallas")`` of each
-    view, on its coarse-direct route."""
+    view: kernel G on an image of at most ``coarse``² tiles (or with
+    ``coarse`` 0), kernel H on any other."""
     b = means3d.shape[0]
     if bg is None:
         bg = torch.ones(3, device=means3d.device)
-    fields, corig, _, overflow = coarse_fields(
-        means3d, scales, rotations, opacity, camera, cfg, shs, colors_precomp, scale_modifier,
-        active_sh_degree)
-    planes = CompositeCoarseFn.apply(fields, corig, cfg.coarse, cfg.tile, cfg.alpha_min,
-                                     cfg.alpha_max)
-
-    cs, cty, ctx = _coarse_grid(cfg)
-    t, px = cfg.tile, cfg.tile * cfg.tile
-    p = planes.reshape(b, cty, ctx, cs, cs, 8, px).permute(0, 1, 3, 2, 4, 5, 6)
-    p = p.reshape(b, cty * cs, ctx * cs, 8, t, t)[:, :cfg.tiles_y, :cfg.tiles_x]
-
-    def untile(ch):  # (B, ty, tx, t, t) → (B, H, W)
-        a = p[:, :, :, ch].permute(0, 1, 3, 2, 4)
-        a = a.reshape(b, cfg.tiles_y * t, cfg.tiles_x * t)
-        return a[:, :cfg.height, :cfg.width]
-
-    t_final = untile(5)
-    rgb = torch.stack([untile(i) for i in range(3)], dim=-1) + t_final[..., None] * bg
-    return RenderOutput(rgb=rgb, depth=untile(4), alpha=untile(3), overflow=overflow)
+    fields_route = cfg.coarse <= 0 or cfg.tiles_x * cfg.tiles_y <= cfg.coarse ** 2
+    args = (means3d, scales, rotations, opacity, camera, cfg, shs, colors_precomp,
+            scale_modifier, active_sh_degree)
+    t = cfg.tile
+    if fields_route:
+        fields, origins, _, overflow = tile_fields(*args)
+        planes = CompositeFieldsFn.apply(fields, origins, t, cfg.alpha_min, cfg.alpha_max)
+        p = planes.reshape(b, cfg.tiles_y, cfg.tiles_x, 8, t, t)
+    else:
+        fields, corig, _, overflow = coarse_fields(*args)
+        planes = CompositeCoarseFn.apply(fields, corig, cfg.coarse, t, cfg.alpha_min,
+                                         cfg.alpha_max)
+        cs, cty, ctx = _coarse_grid(cfg)
+        p = planes.reshape(b, cty, ctx, cs, cs, 8, t, t).permute(0, 1, 3, 2, 4, 5, 6, 7)
+        p = p.reshape(b, cty * cs, ctx * cs, 8, t, t)[:, :cfg.tiles_y, :cfg.tiles_x]
+    rgb, depth, alpha = _untile(p, cfg, bg)
+    return RenderOutput(rgb=rgb, depth=depth, alpha=alpha, overflow=overflow)

@@ -10,9 +10,10 @@ port of ``animate3d_tpu/rendering/renderer4d.py``.
     come back per item for ARAP and trajectory export.
 
 The items are one batch dimension of the rasterizer, so one launch of
-kernel H per direction covers every render of the call (up to
-``_PLANE_ELEMS`` of composited planes per launch: all 64 renders of a recon
-step at 256², and of the four-view test at 512²). The draws (the masks and
+kernel H (or G, at 64² and below) per direction covers every render of the
+call, up to ``_PLANE_ELEMS`` of composited planes per launch: all 64
+renders of a recon step at 256², and of the four-view test at 512²; 32
+renders a launch at 1024². The draws (the masks and
 the background inversion) come from ``generator``, or are given in
 ``draws`` (the tests feed the JAX package's); with neither, nothing is
 drawn, as the JAX renderer without a key.
@@ -60,7 +61,7 @@ class Render4DOutput(NamedTuple):
     means3d: torch.Tensor  # (B, N, 3) deformed positions
     rotations: torch.Tensor  # (B, N, 4)
     scales: torch.Tensor  # (B, N, 3)
-    overflow: torch.Tensor  # () gaussian x coarse-tile pairs past coarse_k
+    overflow: torch.Tensor  # () gaussian x tile pairs past the binning's caps
 
 
 def make_draws(cfg: Renderer4DConfig, b: int, n: int, generator: torch.Generator,

@@ -1,7 +1,7 @@
 """Artifact saving: the port's own copies of the parts of
 ``animate3d_tpu/utils/saving.py`` it uses (multi-view and grid GIFs, RGBA
-pngs, trajectory npys, json, and the trial-dir :class:`Saver`). mp4
-writing is not ported yet.
+pngs, mp4 videos with a GIF fallback, trajectory npys, json, and the
+trial-dir :class:`Saver`).
 """
 
 from __future__ import annotations
@@ -30,6 +30,26 @@ def export_to_gif_mv(frames: np.ndarray, path: str, fps: int = 8) -> str:
     pil_frames[0].save(path, save_all=True, append_images=pil_frames[1:],
                        duration=int(1000 / fps), loop=0)
     return path
+
+
+def save_video_mp4(frames: np.ndarray, path: str, fps: int = 8) -> str:
+    """(F, H, W, 3) video in [0, 1] → mp4 through an ffmpeg-capable
+    ``imageio`` writer; where there is none (``imageio`` or its ffmpeg
+    plugin missing, or the writer failing), a GIF beside it. Returns the
+    path written."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import imageio
+
+        writer = imageio.get_writer(path, fps=fps)
+        for fr in frames:
+            writer.append_data(_to_uint8(fr))
+        writer.close()
+        return path
+    except (ImportError, ValueError, OSError, RuntimeError):  # no usable mp4 writer
+        alt = os.path.splitext(path)[0] + ".gif"
+        export_to_gif_mv(np.asarray(frames)[None], alt, fps=fps)
+        return alt
 
 
 def save_videos_grid(videos: np.ndarray, path: str, n_rows: int = 4, fps: int = 8) -> str:
@@ -73,6 +93,12 @@ class Saver:
 
     def rgba(self, name: str, rgb: np.ndarray, alpha: np.ndarray) -> str:
         return save_rgba_image(self.path(name), rgb, alpha)
+
+    def gif_mv(self, name: str, frames: np.ndarray, fps: int = 8) -> str:
+        return export_to_gif_mv(frames, self.path(name), fps)
+
+    def mp4(self, name: str, frames: np.ndarray, fps: int = 8) -> str:
+        return save_video_mp4(frames, self.path(name), fps)
 
     def trajectory(self, name: str, means3d: np.ndarray) -> str:
         """Per-frame gaussian positions (the mesh-animation export's input)."""

@@ -88,8 +88,8 @@ def test_geglu_plain_matches_pallas_kernel():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
-# full-width main-path attention sites: (query batch, Sq, Sk, C, heads,
-# self-attention, which JAX predicate routes it)
+# full-width attention sites of the main path and of a 4-frame clip: (query
+# batch, Sq, Sk, C, heads, self-attention, which JAX predicate routes it)
 _SITES = [
     ("L0 cross-view attn1 / spatial branch", 32, 4096, 4096, 320, 8, True, "flash"),
     ("L1 cross-view attn1 / spatial branch", 32, 1024, 1024, 640, 8, True, "flash"),
@@ -102,6 +102,7 @@ _SITES = [
     ("L1 temporal", 2048, 16, 16, 640, 8, True, "packed"),
     ("L2 temporal", 512, 16, 16, 1280, 8, True, "packed"),
     ("L3 temporal", 128, 16, 16, 1280, 8, True, "packed"),
+    ("L0 temporal, a 4-frame clip", 2048, 4, 4, 320, 8, True, "packed"),
 ]
 
 

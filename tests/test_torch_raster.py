@@ -217,12 +217,24 @@ def test_rasterize_batches_views():
 
 
 def test_fields_route_raises():
-    """An image of coarse² = 16 tiles or fewer is kernel G's route."""
+    """What raises on kernel G's route (an image of coarse² = 16 tiles or
+    fewer) is G's wrapper, on a K its kernel does not take; the route
+    itself renders (:func:`test_fields_route_renders_on_cpu`)."""
+    with pytest.raises(ValueError, match="K=200"):
+        R._check_g("composite_fields", (torch.zeros((2, 12, 200)), torch.zeros(2, 2)), 200, 16)
+
+
+def test_fields_route_renders_on_cpu():
+    """A 64² image (16 tiles) renders on the CPU through G's plain versions
+    with no launch (tests/test_torch_fields.py holds the route against
+    JAX)."""
     cam, arrs = _scene(n=10, res=64)
     means, scales, q, op, shs = (torch.tensor(a) for a in arrs)
-    with pytest.raises(NotImplementedError, match="kernel G"):
-        R.rasterize(means[None], scales[None], q[None], op, _torch_cam(cam),
-                    R.RasterConfig(height=64, width=64), shs=shs)
+    _build.reset_launches()
+    out = R.rasterize(means[None], scales[None], q[None], op, _torch_cam(cam),
+                      R.RasterConfig(height=64, width=64), shs=shs)
+    assert out.rgb.shape == (1, 64, 64, 3) and bool(torch.isfinite(out.rgb).all())
+    assert sum(_build.launch_totals().values()) == 0
 
 
 def test_h_wrapper_rejects_what_the_kernel_does_not_take():

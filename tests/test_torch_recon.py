@@ -350,10 +350,13 @@ def test_launch_train_and_test_on_cpu(workspace):
     np.testing.assert_allclose(again["rgb"], res["rgb"], atol=1e-6)
 
 
-@pytest.mark.parametrize("extra", [["--validate"], ["--train", "system.load_guidance=true"],
-                                   ["--test", "system.test_option=testset"],
+@pytest.mark.parametrize("extra", [["--train", "trainer.mesh_dp=2"],
+                                   ["--train", "system.load_guidance=true"],
+                                   ["--validate", "system.weights=ckpts"],
                                    ["--train", "system.weights=ckpts"]])
 def test_launch_refuses_what_is_not_ported(workspace, extra):
+    """dp meshes, refine's guidance and stage chaining (``--validate`` and
+    the testset grid are ported: tests/test_torch_eval_cli.py)."""
     from animate3d_tpu_torch.cli.launch import main
 
     with pytest.raises(NotImplementedError):
