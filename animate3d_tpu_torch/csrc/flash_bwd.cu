@@ -2,473 +2,493 @@
 //
 // Replaces: animate3d_tpu/ops/attention.py::_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel, reached through _flash_bwd_impl_merged /
-// flash_attention_padded's VJP (the TPU's FlashAttention-2 backward).
+// flash_attention_padded's VJP (heads 40 and 80 wide) and
+// _flash_attention_bwd_impl (the unpadded route of the 160-wide heads).
 //
 // With S = q k^T * scale, P = exp(S - lse) rebuilt from the forward's
-// natural-log row lse (flash_fwd.cu), dP = dO v^T and Delta = rowsum(dO o)
-// (f32, computed by the caller), dS = P (dP - Delta) and
+// natural-log row lse (flash_fwd.cu), dP = dO v^T, Delta = rowsum(dO o) in
+// f32, dS = P (dP - Delta) and
 //   dq = scale * dS k,   dk = scale * dS^T q,   dv = P^T dO.
 // P and dS are rounded to bf16 where they enter a product, as the TPU
 // kernels round them. The scale multiplies the f32 scores after the dot and
 // no 110 clamp is applied, exactly as flash_fwd.cu built the lse. q/k/v/dO
-// are read from the merged (B, S, H*D) layout by stride; D is padded to a
-// multiple of 16 in shared memory only. K/V (and dK/dV) may belong to
-// `kv_group` consecutive query batches (the I2V branches' frame-0 K/V).
+// are read from the merged (B, S, H*D) layout through TMA tensor maps (D 40
+// reads as 48 with zero columns). K/V (and dK/dV) may belong to `kv_group`
+// consecutive query batches (the I2V branches' frame-0 K/V).
 //
-// Bound on the H100: the five S x S x D products (10*B*H*Sq*Sk*D flops)
-// dwarf the bytes at the trainer's shapes (S = 4096, D = 40), so the tensor
-// cores bind. Design (FlashAttention-2 on mma.sync, as flash_fwd.cu): two
-// kernels, so that neither needs atomics. flash_bwd_dq_kernel: one CTA of 4
-// warps owns a 64-row q tile of one (batch, head) with its Q and dO
-// fragments in registers, streams 64-key K/V tiles through a 2-stage
-// cp.async ring, and keeps S, P, dP and dS in registers; dS's accumulators
-// become the dS K product's A operand in place. flash_bwd_dkv_kernel: one
-// CTA owns a 64-key K/V tile of one (kv batch, head), keeps its K fragments
-// in registers and streams the q / dO tiles (with their lse and Delta) of
-// ALL the kv_group query batches that read it, so the group's dK/dV sum
-// stays in f32 registers: no broadcast copy and no cross-CTA reduction.
-// Rows are keys there, so S^T and dP^T are the tiles in registers and P^T,
-// dS^T are the A operands of dV += P^T dO and dK += dS^T q.
-// Not yet: wgmma, TMA, warp specialisation.
+// Three launches: flash_bwd_delta_kernel computes Delta (B, H, Sq) from o
+// and dO; flash_bwd_kernel makes one pass per 128-key tile; cast kernels
+// scale the f32 dQ sums into bf16 dq (and, when a K/V batch's query
+// batches were split over CTAs, the f32 dK / dV sums into dk / dv).
+//
+// Bound on the H100: five S x S x D products (10 * DP flops a score on the
+// tensor cores) and one ex2 a score on the SFU; at DP 48 that is 0.49
+// against 0.26 ns a score, so the tensor cores bind at every head width.
+// Design (FlashAttention-3's backward): a CTA of three warpgroups owns one
+// 128-key K/V tile of one (kv batch, head), loaded once by TMA. A producer
+// warp streams 64-query Q / dO tiles (with their lse and Delta rows) of
+// the CTA's query batches through a 2-stage ring gated by mbarriers; two
+// consumer warpgroups each own 64 keys and keep their dK and dV in
+// registers. Per query tile a consumer computes S^T = K Q^T and
+// dP^T = V dO^T (wgmma, both operands in shared memory), P^T with one ex2 a
+// score and dS^T in registers, dV += P^T dO and dK += dS^T Q (wgmma with
+// P^T / dS^T as register A fragments), and writes dS^T to shared memory;
+// then the two split the columns of dQ = dS K over all 128 keys (wgmma,
+// both operands MN-major) and add the tile to an f32 dQ scratch (B, H, Sq,
+// D) with vector atomics (red.global.add.v2.f32). That makes 5 products
+// and one ex2 a score, where the earlier two-kernel design made 7 and two.
+// The atomics change the f32 summation order of dQ from run to run. The
+// key tiles of one (batch, head) start at different query tiles, so their
+// atomics meet different rows. kv_group query batches are split over
+// `nsplit` CTAs so that the I2V shape fills the card; their dK / dV meet in
+// f32 scratch by the same atomics and are rounded to bf16 once, in a cast
+// kernel.
 
 #include <math.h>
 
-#include "mma_common.cuh"
+#include "hopper_common.cuh"
+#include "wgmma_ops.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;  // 16 rows per warp, 64 rows per CTA
-constexpr int THREADS = WARPS * 32;
+typedef __nv_bfloat16 bf16;
+
+constexpr int BK = 128;  // keys per CTA: 64 per consumer warpgroup
+constexpr int BQ = 64;   // queries per streamed tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 struct Cfg {
-  static constexpr int LD = DP + 8;     // padded smem row: conflict-free ldmatrix
-  static constexpr int TILE = 64 * LD;  // elements of one 64-row tile
-  // six bf16 tiles, plus two stages of 64 lse and 64 Delta values (dkv)
-  static constexpr size_t SMEM = (size_t)6 * TILE * sizeof(bf16) + 4 * 64 * sizeof(float);
+  static constexpr int KD = DP / 16;
+  static constexpr int KV_BYTES = KD * BK * 32;  // the K or V tile
+  static constexpr int QT_BYTES = KD * BQ * 32;  // one Q or dO tile
+  static constexpr int DS_BYTES = BQ * BK * 2;   // one dS^T buffer (128 keys x 64 queries)
+  static constexpr int STAGE_OFF = 2 * KV_BYTES;
+  static constexpr int DS_OFF = STAGE_OFF + STAGES * 2 * QT_BYTES;
+  static constexpr int LD_OFF = DS_OFF + 2 * DS_BYTES;  // lse * log2(e), then Delta
+  static constexpr int BAR_OFF = LD_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int USED = BAR_OFF + 64 + 1024;
+  static constexpr int SMEM = USED > 118784 ? USED : 118784;  // one CTA an SM
+  // dQ columns of consumer 0 and 1 (each a multiple of 16)
+  static constexpr int NQ0 = (KD + 1) / 2 * 16;
+  static constexpr int NQ1 = DP - NQ0;
 };
 
-// B-operand fragments of rows [n0, n0 + 16) of a (rows, LD) tile whose rows
-// are the product's n index (x @ tile^T): b[0], b[1] for n-tile n0 / 8 and
-// b[2], b[3] for the next, over head-dim columns [k0, k0 + 16)
-__device__ __forceinline__ void frag_nt(unsigned (&b)[4], const bf16* tile, int LD, int n0,
-                                        int k0, int lane) {
-  const int mi = lane >> 3;
-  ldmatrix_x4(b, tile + (n0 + (mi >> 1) * 8 + (lane & 7)) * LD + k0 + (mi & 1) * 8);
-}
-
-// B-operand fragments of rows [k0, k0 + 16) of a tile whose rows are the
-// product's k index (x @ tile), for head-dim columns [n0, n0 + 16)
-__device__ __forceinline__ void frag_nn(unsigned (&b)[4], const bf16* tile, int LD, int k0,
-                                        int n0, int lane) {
-  const int mi = lane >> 3;
-  ldmatrix_x4_trans(b, tile + (k0 + (mi & 1) * 8 + (lane & 7)) * LD + n0 + (mi >> 1) * 8);
-}
-
-// A-operand fragments of this warp's 16 rows of a tile, head-dim columns [k0, k0 + 16)
-__device__ __forceinline__ void frag_a(unsigned (&a)[4], const bf16* tile, int LD, int warp,
-                                       int k0, int lane) {
-  ldmatrix_x4(a, tile + (warp * 16 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
-}
-
-// the 16 x 16 A operand of keys / queries [16j, 16j + 16) from the f32
-// accumulators of n-tiles 2j, 2j + 1 (rounded to bf16)
-__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&x)[8][4], int j) {
-  a[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-  a[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-  a[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-  a[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-}
-
-template <int ND>
-__device__ __forceinline__ void store_rows(bf16* base, long long rs, const float (&acc)[ND][4],
-                                           float mul, int r0, int limit, int D, int t) {
-  const int r1 = r0 + 8;
+// The end of one query tile for a consumer: dV += P^T dO and dK += dS^T Q
+// (A fragments from registers, B MN-major: queries as the depth, head
+// columns on N); then, once both consumers' dS^T are in shared memory, its
+// columns [n0, n0 + NQ) of dQ = dS K over the CTA's 128 keys (both operands
+// MN-major), added to the f32 scratch (B, H, Sq, D) with vector atomics
+// (red.global.add.v2.f32). The stage is released once the products that
+// read it are done.
+template <int DP, int NQ>
+__device__ __forceinline__ void tile_tail(float (&dka)[DP / 2], float (&dva)[DP / 2],
+                                          const unsigned (&pa)[BQ / 16][4],
+                                          const unsigned (&da)[BQ / 16][4],
+                                          const unsigned char* sQ, const unsigned char* sdO,
+                                          const unsigned char* dsb, const unsigned char* sK,
+                                          int n0, uint64_t* empty, bool need_dq, bool need_dkv,
+                                          float* __restrict__ dq_tile, int rows_left, int D,
+                                          int warp, int lane) {
+  if (need_dkv) {
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
+    hop::wg_fence();
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (c >= D) continue;
-    if (r0 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r0 * rs + c) =
-          __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
-    if (r1 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r1 * rs + c) =
-          __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
+    for (int j = 0; j < BQ / 16; ++j)
+      Wgmma<DP>::template rs<1>(dva, pa[j], hop::sw32_desc(sdO + j * 512, BQ * 32, 256), 1);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j)
+      Wgmma<DP>::template rs<1>(dka, da[j], hop::sw32_desc(sQ + j * 512, BQ * 32, 256), 1);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
+  }
+  if (!need_dq) {
+    hop::mbar_arrive(empty);
+    return;
+  }
+  // both consumers' dS^T are in shared memory (the other buffer is the one
+  // the previous query tile's dQ read: a consumer reaches this barrier only
+  // after its own dQ of that tile finished)
+  hop::bar_sync(1, 256);
+  float acc[NQ / 2];
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Wgmma<NQ>::template ss<1, 1>(
+        acc, hop::sw32_desc(dsb + kk * 512, BK * 32, 256),
+        hop::sw32_desc(sK + (n0 / 16) * BK * 32 + kk * 512, BK * 32, 256), kk > 0);
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::fence_regs(acc);
+  hop::mbar_arrive(empty);  // Q, dO, lse and Delta of this stage are read
+  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < NQ / 8; ++n) {
+    const int col = n0 + n * 8 + 2 * (lane & 3);
+    if (col >= D) continue;
+    if (r0 < rows_left)
+      atomicAdd(reinterpret_cast<float2*>(dq_tile + r0 * D + col),
+                make_float2(acc[4 * n], acc[4 * n + 1]));
+    if (r1 < rows_left)
+      atomicAdd(reinterpret_cast<float2*>(dq_tile + r1 * D + col),
+                make_float2(acc[4 * n + 2], acc[4 * n + 3]));
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int H, int Sq, int Sk, int D, long long q_bs,
-                    long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-                    long long v_rs, long long do_bs, long long do_rs, long long dq_bs,
-                    long long dq_rs, int kv_group, float scale, float scale_log2) {
-  constexpr int LD = Cfg<DP>::LD;
-  constexpr int TILE = Cfg<DP>::TILE;
-  constexpr int KD = DP / 16;  // k-steps over the head dim
-  constexpr int ND = DP / 8;   // 8-wide output column tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + TILE;
-  bf16* sK[2] = {sQ + 2 * TILE, sQ + 4 * TILE};
-  bf16* sV[2] = {sQ + 3 * TILE, sQ + 5 * TILE};
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 float* __restrict__ dk_acc, float* __restrict__ dv_acc, int H, int Sq, int Sk,
+                 int D, int kv_group, int nsplit, int need_dq, int need_dkv, float scale,
+                 float scale_log2) {
+  using C = Cfg<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::smem_base(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + C::KV_BYTES;
+  float* sL = reinterpret_cast<float*>(smem + C::LD_OFF);  // [STAGES][BQ]
+  float* sD = sL + STAGES * BQ;                             // [STAGES][BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full_kv = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
-  const bf16* kb = k + (long long)(b / kv_group) * k_bs + (long long)h * D;
-  const bf16* vb = v + (long long)(b / kv_group) * v_bs + (long long)h * D;
-  const int ntiles = (Sk + 63) / 64;
+  const int kt = blockIdx.x, h = blockIdx.y;
+  const int bkv = blockIdx.z / nsplit, per = kv_group / nsplit;
+  const int b0 = bkv * kv_group + (blockIdx.z % nsplit) * per;  // this CTA's query batches
+  const int nqt = (Sq + BQ - 1) / BQ, total = per * nqt;
+  // the key tiles of one (batch, head) run at once and all add into its dQ:
+  // each starts at another query tile, so their adds meet different rows
+  const int rot = (int)(((long long)kt * nqt) / gridDim.x);
+  const int k0 = kt * BK, Cw = H * D;
+  const int wg = threadIdx.x / 128;
 
-  load_tile<DP, LD>(sQ, q + (long long)b * q_bs + (long long)h * D, q_rs, q0, Sq, D);
-  load_tile<DP, LD>(sdO, dout + (long long)b * do_bs + (long long)h * D, do_rs, q0, Sq, D);
-  load_tile<DP, LD>(sK[0], kb, k_rs, 0, Sk, D);
-  load_tile<DP, LD>(sV[0], vb, v_rs, 0, Sk, D);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    hop::mbar_init(full_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 32);
+      hop::mbar_init(&empty[s], 256);
+    }
+    hop::mbar_fence_init();
+  }
   __syncthreads();
 
-  // Q and dO A-fragments, kept in registers for every K/V tile
-  unsigned qf[KD][4], df[KD][4];
+  if (wg == 0) {
+    // producer warp: lane 0 issues the TMA loads; every lane stages two of
+    // the tile's lse / Delta rows (rows past Sq: lse +inf, so P = 0)
+    hop::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hop::mbar_arrive_tx(full_kv, 2 * C::KV_BYTES);
+        for (int kk = 0; kk < C::KD; ++kk) {
+          hop::tma_load_4d(sK + kk * BK * 32, &tk, full_kv, kk * 16, h, k0, bkv);
+          hop::tma_load_4d(sV + kk * BK * 32, &tv, full_kv, kk * 16, h, k0, bkv);
+        }
+      }
+      for (int it = 0; it < total; ++it) {
+        const int s = it % STAGES;
+        const int b = b0 + it / nqt, q0 = (it + rot) % nqt * BQ;
+        hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const long long row = ((long long)b * H + h) * Sq;
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    frag_a(qf[kk], sQ, LD, warp, kk * 16, lane);
-    frag_a(df[kk], sdO, LD, warp, kk * 16, lane);
-  }
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const long long row = ((long long)b * H + h) * Sq;
-  const float l0 = r0 < Sq ? lse[row + r0] * LOG2E : 0.f;
-  const float l1 = r1 < Sq ? lse[row + r1] * LOG2E : 0.f;
-  const float d0 = r0 < Sq ? delta[row + r0] : 0.f;
-  const float d1 = r1 < Sq ? delta[row + r1] : 0.f;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < ntiles) {
-      load_tile<DP, LD>(sK[st ^ 1], kb, k_rs, (it + 1) * 64, Sk, D);
-      load_tile<DP, LD>(sV[st ^ 1], vb, v_rs, (it + 1) * 64, Sk, D);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cK = sK[st];
-    const bf16* cV = sV[st];
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned f[4];
-        frag_nt(f, cK, LD, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qf[kk], f[0], f[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], f[2], f[3]);
-        frag_nt(f, cV, LD, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], df[kk], f[0], f[1]);
-        mma_bf16(dp[2 * np + 1], df[kk], f[2], f[3]);
+        for (int r = lane; r < BQ; r += 32) {
+          const int qi = q0 + r;
+          sL[s * BQ + r] = qi < Sq ? lse[row + qi] * LOG2E : INFINITY;
+          sD[s * BQ + r] = qi < Sq ? delta[row + qi] : 0.f;
+        }
+        if (lane == 0) {
+          unsigned char* sQ = smem + C::STAGE_OFF + s * 2 * C::QT_BYTES;
+          hop::mbar_arrive_tx(&full[s], 2 * C::QT_BYTES);
+          for (int kk = 0; kk < C::KD; ++kk) {
+            hop::tma_load_4d(sQ + kk * BQ * 32, &tq, &full[s], kk * 16, h, q0, b);
+            hop::tma_load_4d(sQ + C::QT_BYTES + kk * BQ * 32, &tdo, &full[s], kk * 16, h, q0,
+                             b);
+          }
+        } else {
+          hop::mbar_arrive(&full[s]);
+        }
       }
     }
+    return;
+  }
 
-    // dS = P (dP - Delta), P = 2^(s * scale_log2 - lse_2); keys past Sk
-    // (only in a partial last tile) get P = 0
-    const int kv0 = it * 64;
-    const bool ragged = kv0 + 64 > Sk;
+  hop::reg_alloc<CONSUMER_REGS>();
+  const int c = wg - 1;  // consumer index: keys [64c, 64c + 64) of the tile
+  const int tid = threadIdx.x - 128 * wg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  float dka[DP / 2], dva[DP / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  hop::mbar_wait(full_kv, 0);
+
+  // one query tile; the loop below takes two a trip, which makes the stage
+  // and dS buffer of each a constant (it is even there)
+  auto step = [&](int it) {
+    const int s = it % STAGES;
+    const int b = b0 + it / nqt, q0 = (it + rot) % nqt * BQ;
+    hop::mbar_wait(&full[s], (it / STAGES) & 1);
+    const unsigned char* sQ = smem + C::STAGE_OFF + s * 2 * C::QT_BYTES;
+    const unsigned char* sdO = sQ + C::QT_BYTES;
+
+    // S^T = K Q^T and dP^T = V dO^T: this consumer's 64 keys x 64 queries
+    float st[BQ / 2], dpt[BQ / 2];
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk)
+      Wgmma<BQ>::template ss<0, 0>(st, hop::sw32_desc(sK + kk * BK * 32 + c * 64 * 32, 16, 256),
+                                   hop::sw32_desc(sQ + kk * BQ * 32, 16, 256), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk)
+      Wgmma<BQ>::template ss<0, 0>(dpt, hop::sw32_desc(sV + kk * BK * 32 + c * 64 * 32, 16, 256),
+                                   hop::sw32_desc(sdO + kk * BQ * 32, 16, 256), kk > 0);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+
+    // P^T = 2^(s * scale_log2 - lse_2) and dS^T = P^T (dP^T - Delta) in
+    // place; column 8n + 2t (+1) of the fragment is the query
+    const float* L = sL + s * BQ;
+    const float* Dl = sD + s * BQ;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = ex2(fmaf(s[n][e], scale_log2, -(e < 2 ? l0 : l1)));
-        if (ragged && kv0 + n * 8 + 2 * t + (e & 1) >= Sk) p = 0.f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? d0 : d1));
+        const int j = n * 8 + 2 * t + (e & 1);
+        const float p = hop::ex2(fmaf(st[4 * n + e], scale_log2, -L[j]));
+        dpt[4 * n + e] = p * (dpt[4 * n + e] - Dl[j]);
+        st[4 * n + e] = p;
       }
-
-    // dQ += dS K: the dS accumulators of n-tiles 2j, 2j+1 are the A operand
-    // for keys 16j..16j+15, rounded to bf16
+    unsigned pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      unsigned a[4];
-      pack_a(a, s, j);
+    for (int j = 0; j < BQ / 16; ++j)
 #pragma unroll
-      for (int p = 0; p < ND / 2; ++p) {
-        unsigned f[4];
-        frag_nn(f, cK, LD, j * 16, p * 16, lane);
-        mma_bf16(acc[2 * p], a, f[0], f[1]);
-        mma_bf16(acc[2 * p + 1], a, f[2], f[3]);
+      for (int e = 0; e < 4; ++e) {
+        pa[j][e] = hop::pack_bf16(st[8 * j + 2 * e], st[8 * j + 2 * e + 1]);
+        da[j][e] = hop::pack_bf16(dpt[8 * j + 2 * e], dpt[8 * j + 2 * e + 1]);
       }
+    unsigned char* dsb = smem + C::DS_OFF + (it & 1) * C::DS_BYTES;
+    if (need_dq) {
+      // dS^T (keys x queries) into shared memory, 32-byte swizzled with the
+      // queries on the chunks: the MN-major A operand of dQ = dS K
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const int col = n * 8 + 2 * t, r = c * 64 + warp * 16 + g;
+        *reinterpret_cast<unsigned*>(dsb + hop::sw32_offset(r, col, BK)) = da[n >> 1][2 * (n & 1)];
+        *reinterpret_cast<unsigned*>(dsb + hop::sw32_offset(r + 8, col, BK)) =
+            da[n >> 1][2 * (n & 1) + 1];
+      }
+      hop::fence_proxy_async();
     }
-    __syncthreads();  // this stage is refilled two tiles from now
-  }
-  store_rows<ND>(dq + (long long)b * dq_bs + (long long)h * D, dq_rs, acc, scale, r0, Sq, D, t);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk,
-                     int D, long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-                     long long v_bs, long long v_rs, long long do_bs, long long do_rs,
-                     long long dkv_bs, long long dkv_rs, int kv_group, float scale,
-                     float scale_log2) {
-  constexpr int LD = Cfg<DP>::LD;
-  constexpr int TILE = Cfg<DP>::TILE;
-  constexpr int KD = DP / 16;
-  constexpr int ND = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + TILE;
-  bf16* sQ[2] = {sK + 2 * TILE, sK + 4 * TILE};
-  bf16* sdO[2] = {sK + 3 * TILE, sK + 5 * TILE};
-  float* sL = reinterpret_cast<float*>(sK + 6 * TILE);  // [2][64] lse * log2(e)
-  float* sD = sL + 2 * 64;                             // [2][64] Delta
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * 64, h = blockIdx.y, bk = blockIdx.z;
-  const int nqt = (Sq + 63) / 64;
-  const int total = kv_group * nqt;  // q tiles of every query batch reading this K/V
-
-  // q / dO tiles and their lse / Delta rows for step `it` into stage `st`;
-  // rows past Sq get lse = +inf (P = 0) and Delta = 0
-  auto issue = [&](int it, int st) {
-    const int b = bk * kv_group + it / nqt, q0 = (it % nqt) * 64;
-    load_tile<DP, LD>(sQ[st], q + (long long)b * q_bs + (long long)h * D, q_rs, q0, Sq, D);
-    load_tile<DP, LD>(sdO[st], dout + (long long)b * do_bs + (long long)h * D, do_rs, q0,
-                      Sq, D);
-    const int i = threadIdx.x & 63, r = q0 + i;
-    const long long row = ((long long)b * H + h) * Sq;
-    if (threadIdx.x < 64)
-      sL[st * 64 + i] = r < Sq ? lse[row + r] * LOG2E : INFINITY;
+    float* dq_tile = dq_acc + (((long long)b * H + h) * Sq + q0) * D;
+    if (c == 0)
+      tile_tail<DP, C::NQ0>(dka, dva, pa, da, sQ, sdO, dsb, sK, 0, &empty[s], need_dq,
+                            need_dkv, dq_tile, Sq - q0, D, warp, lane);
     else
-      sD[st * 64 + i] = r < Sq ? delta[row + r] : 0.f;
+      tile_tail<DP, C::NQ1>(dka, dva, pa, da, sQ, sdO, dsb, sK, C::NQ0, &empty[s], need_dq,
+                            need_dkv, dq_tile, Sq - q0, D, warp, lane);
   };
-
-  load_tile<DP, LD>(sK, k + (long long)bk * k_bs + (long long)h * D, k_rs, k0, Sk, D);
-  load_tile<DP, LD>(sV, v + (long long)bk * v_bs + (long long)h * D, v_rs, k0, Sk, D);
-  issue(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  unsigned kf[KD][4];  // this warp's 16 keys, kept in registers
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) frag_a(kf[kk], sK, LD, warp, kk * 16, lane);
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    const int st = it & 1;
-    if (it + 1 < total) issue(it + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cQ = sQ[st];
-    const bf16* cdO = sdO[st];
-    const float* cL = sL + st * 64;
-    const float* cD = sD + st * 64;
-
-    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T in place
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned f[4];
-        frag_nt(f, cQ, LD, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], kf[kk], f[0], f[1]);
-        mma_bf16(s[2 * np + 1], kf[kk], f[2], f[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float la = cL[n * 8 + 2 * t], lb = cL[n * 8 + 2 * t + 1];
-      s[n][0] = ex2(fmaf(s[n][0], scale_log2, -la));
-      s[n][1] = ex2(fmaf(s[n][1], scale_log2, -lb));
-      s[n][2] = ex2(fmaf(s[n][2], scale_log2, -la));
-      s[n][3] = ex2(fmaf(s[n][3], scale_log2, -lb));
-    }
-
-    // dV += P^T dO (P^T rounded to bf16 as the A operand)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      unsigned a[4];
-      pack_a(a, s, j);
-#pragma unroll
-      for (int p = 0; p < ND / 2; ++p) {
-        unsigned f[4];
-        frag_nn(f, cdO, LD, j * 16, p * 16, lane);
-        mma_bf16(dva[2 * p], a, f[0], f[1]);
-        mma_bf16(dva[2 * p + 1], a, f[2], f[3]);
-      }
-    }
-
-    // dP^T = V dO^T, then dS^T = P^T (dP^T - Delta) in place
-    float dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      unsigned vf[4];
-      frag_a(vf, sV, LD, warp, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        unsigned f[4];
-        frag_nt(f, cdO, LD, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], vf, f[0], f[1]);
-        mma_bf16(dp[2 * np + 1], vf, f[2], f[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float da = cD[n * 8 + 2 * t], db = cD[n * 8 + 2 * t + 1];
-      dp[n][0] = s[n][0] * (dp[n][0] - da);
-      dp[n][1] = s[n][1] * (dp[n][1] - db);
-      dp[n][2] = s[n][2] * (dp[n][2] - da);
-      dp[n][3] = s[n][3] * (dp[n][3] - db);
-    }
-
-    // dK += dS^T Q (dS^T rounded to bf16 as the A operand)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      unsigned a[4];
-      pack_a(a, dp, j);
-#pragma unroll
-      for (int p = 0; p < ND / 2; ++p) {
-        unsigned f[4];
-        frag_nn(f, cQ, LD, j * 16, p * 16, lane);
-        mma_bf16(dka[2 * p], a, f[0], f[1]);
-        mma_bf16(dka[2 * p + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two steps from now
+  static_assert(STAGES == 2, "two query tiles a trip");
+  for (int it = 0; it < total; it += 2) {
+    step(it);
+    if (it + 1 < total) step(it + 1);
   }
-  const int r0 = k0 + warp * 16 + g;
-  const long long off = (long long)bk * dkv_bs + (long long)h * D;
-  store_rows<ND>(dk + off, dkv_rs, dka, scale, r0, Sk, D, t);
-  store_rows<ND>(dv + off, dkv_rs, dva, 1.f, r0, Sk, D, t);
+
+  if (!need_dkv) return;
+  const int r0 = k0 + c * 64 + warp * 16 + g, r1 = r0 + 8;
+  const long long base = (long long)bkv * Sk * Cw + (long long)h * D;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (col >= D) continue;
+    if (nsplit == 1) {
+      if (r0 < Sk) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + (long long)r0 * Cw + col) =
+            __floats2bfloat162_rn(dka[4 * n] * scale, dka[4 * n + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + (long long)r0 * Cw + col) =
+            __floats2bfloat162_rn(dva[4 * n], dva[4 * n + 1]);
+      }
+      if (r1 < Sk) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + (long long)r1 * Cw + col) =
+            __floats2bfloat162_rn(dka[4 * n + 2] * scale, dka[4 * n + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + (long long)r1 * Cw + col) =
+            __floats2bfloat162_rn(dva[4 * n + 2], dva[4 * n + 3]);
+      }
+    } else {
+      if (r0 < Sk) {
+        atomicAdd(reinterpret_cast<float2*>(dk_acc + base + (long long)r0 * Cw + col),
+                  make_float2(dka[4 * n], dka[4 * n + 1]));
+        atomicAdd(reinterpret_cast<float2*>(dv_acc + base + (long long)r0 * Cw + col),
+                  make_float2(dva[4 * n], dva[4 * n + 1]));
+      }
+      if (r1 < Sk) {
+        atomicAdd(reinterpret_cast<float2*>(dk_acc + base + (long long)r1 * Cw + col),
+                  make_float2(dka[4 * n + 2], dka[4 * n + 3]));
+        atomicAdd(reinterpret_cast<float2*>(dv_acc + base + (long long)r1 * Cw + col),
+                  make_float2(dva[4 * n + 2], dva[4 * n + 3]));
+      }
+    }
+  }
 }
 
-template <typename K>
-int prepare(K kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+// Delta[b, h, q] = sum_d dO[b, q, h, d] o[b, q, h, d] in f32, one thread a
+// (b, q, h) row of D (a multiple of 8) values
+__global__ void flash_bwd_delta_kernel(const bf16* __restrict__ out,
+                                       const bf16* __restrict__ dout, float* __restrict__ delta,
+                                       int B, int H, int Sq, int D, long long o_bs, long long o_rs,
+                                       long long do_bs, long long do_rs) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)B * Sq * H) return;
+  const int h = (int)(idx % H), q = (int)((idx / H) % Sq), b = (int)(idx / ((long long)H * Sq));
+  const bf16* o = out + b * o_bs + q * o_rs + (long long)h * D;
+  const bf16* g = dout + b * do_bs + q * do_rs + (long long)h * D;
+  float acc = 0.f;
+  for (int c = 0; c < D; c += 8) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), d = __bfloat1622float2(g2[i]);
+      acc = fmaf(a.x, d.x, acc);
+      acc = fmaf(a.y, d.y, acc);
+    }
+  }
+  delta[((long long)b * H + h) * Sq + q] = acc;
 }
 
-template <int DP>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int H, int Sq, int Sk, int D,
-              long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-              long long v_rs, long long do_bs, long long do_rs, long long dq_bs,
-              long long dq_rs, int kv_group, float scale, cudaStream_t stream) {
-  const size_t smem = Cfg<DP>::SMEM;
-  const int err = prepare(flash_bwd_dq_kernel<DP>, smem);
-  if (err) return err;
-  dim3 grid((Sq + 63) / 64, H, B);
-  flash_bwd_dq_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Sq, Sk, D, q_bs, q_rs,
-      k_bs, k_rs, v_bs, v_rs, do_bs, do_rs, dq_bs, dq_rs, kv_group, scale, scale * LOG2E);
+// out = bf16(in * mul) over n (a multiple of 4) contiguous values
+__global__ void cast_scaled_kernel(const float* __restrict__ in, bf16* __restrict__ out,
+                                   long long n, float mul) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(in)[i];
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out) + 2 * i;
+    o[0] = __floats2bfloat162_rn(v.x * mul, v.y * mul);
+    o[1] = __floats2bfloat162_rn(v.z * mul, v.w * mul);
+  }
+}
+
+// dq (B, Sq, H*D) bf16 = scale * the f32 scratch (B, H, Sq, D), 4 values a
+// thread, in the output's order
+__global__ void cast_heads_kernel(const float* __restrict__ acc, bf16* __restrict__ dq, int H,
+                                  int Sq, int D, long long n4, float mul) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int d4 = D / 4;
+    const long long row = i / d4;  // (b, q, h)
+    const int h = (int)(row % H);
+    const long long bq = row / H, b = bq / Sq, q = bq % Sq;
+    const float4 v =
+        reinterpret_cast<const float4*>(acc + ((b * H + h) * Sq + q) * D)[i % d4];
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dq) + 2 * i;
+    o[0] = __floats2bfloat162_rn(v.x * mul, v.y * mul);
+    o[1] = __floats2bfloat162_rn(v.z * mul, v.w * mul);
+  }
+}
+
+int grid_for(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return (int)(blocks < 8192 ? blocks : 8192);
+}
+
+int cast_scaled(const void* in, void* out, long long n, float mul, cudaStream_t stream) {
+  cast_scaled_kernel<<<grid_for(n / 4), 256, 0, stream>>>(
+      static_cast<const float*>(in), static_cast<bf16*>(out), n, mul);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-               long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-               long long v_rs, long long do_bs, long long do_rs, long long dkv_bs,
-               long long dkv_rs, int kv_group, float scale, cudaStream_t stream) {
-  const size_t smem = Cfg<DP>::SMEM;
-  const int err = prepare(flash_bwd_dkv_kernel<DP>, smem);
-  if (err) return err;
-  dim3 grid((Sk + 63) / 64, H, B / kv_group);
-  flash_bwd_dkv_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
-      Sq, Sk, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, do_bs, do_rs, dkv_bs, dkv_rs, kv_group,
-      scale, scale * LOG2E);
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dq_acc, void* dk, void* dv, void* dk_acc, void* dv_acc,
+           int B, int H, int Sq, int Sk, int D, long long q_bs, long long q_rs, long long k_bs,
+           long long k_rs, long long v_bs, long long v_rs, long long do_bs, long long do_rs,
+           int kv_group, int nsplit, int need_dq, int need_dkv, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hop::head_map(&tq, q, B, Sq, H, D, q_bs, q_rs, BQ) ||
+      !hop::head_map(&tdo, dout, B, Sq, H, D, do_bs, do_rs, BQ) ||
+      !hop::head_map(&tk, k, B / kv_group, Sk, H, D, k_bs, k_rs, BK) ||
+      !hop::head_map(&tv, v, B / kv_group, Sk, H, D, v_bs, v_rs, BK))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Cfg<DP>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sk + BK - 1) / BK, H, (B / kv_group) * nsplit);
+  flash_bwd_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), static_cast<float*>(dk_acc), static_cast<float*>(dv_acc), H, Sq,
+      Sk, D, kv_group, nsplit, need_dq, need_dkv, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, dout (B, Sq, H*D), k/v (B / kv_group, Sk, H*D) bf16 with the given
-// batch / row strides (elements, unit channel stride); lse, delta (B, H, Sq)
-// f32 contiguous; dq (B, Sq, H*D) bf16. D a multiple of 8, at most 128.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq, int B, int H,
-                            int Sq, int Sk, int D, long long q_bs, long long q_rs,
-                            long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-                            long long do_bs, long long do_rs, long long dq_bs,
-                            long long dq_rs, int kv_group, float scale, void* stream) {
+// q, out, dout (B, Sq, H*D), k/v (B / kv_group, Sk, H*D) bf16 with the
+// given batch / row strides (elements, unit channel stride; strides and
+// bases 16-byte aligned); lse (B, H, Sq) f32 contiguous; delta (B, H, Sq)
+// f32 scratch. With need_dq: dq_acc (B, H, Sq, D) f32 zeroed scratch and dq
+// (B, Sq, H*D) bf16 contiguous. With need_dkv: dk / dv (B / kv_group, Sk,
+// H*D) bf16 contiguous, each the f32 sum over the kv_group query batches
+// of that K/V batch, which nsplit (dividing kv_group) CTAs share; with
+// nsplit > 1, dk_acc / dv_acc of dk's shape in f32, zeroed. D is 40, 80 or
+// 160.
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* out,
+                         const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
+                         void* dk, void* dv, void* dk_acc, void* dv_acc, int B, int H, int Sq,
+                         int Sk, int D, long long q_bs, long long q_rs, long long k_bs,
+                         long long k_rs, long long v_bs, long long v_rs, long long o_bs,
+                         long long o_rs, long long do_bs, long long do_rs, int kv_group,
+                         int nsplit, int need_dq, int need_dkv, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define A3D_CASE(DP)                                                                      \
-  case DP:                                                                                \
-    return launch_dq<DP>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, q_bs, q_rs, k_bs, \
-                         k_rs, v_bs, v_rs, do_bs, do_rs, dq_bs, dq_rs, kv_group, scale, s);
-  switch ((D + 15) / 16 * 16) {
-    A3D_CASE(16)
-    A3D_CASE(32)
-    A3D_CASE(48)
-    A3D_CASE(64)
-    A3D_CASE(80)
-    A3D_CASE(96)
-    A3D_CASE(112)
-    A3D_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (D != 40 && D != 80 && D != 160) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * Sq * H;
+  flash_bwd_delta_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<float*>(delta), B, H, Sq, D, o_bs, o_rs, do_bs, do_rs);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+#define A3D_CASE(DW, DP)                                                                     \
+  case DW:                                                                                   \
+    rc = launch<DP>(q, k, v, dout, static_cast<const float*>(lse),                           \
+                    static_cast<const float*>(delta), dq_acc, dk, dv, dk_acc, dv_acc, B, H, \
+                    Sq, Sk, D, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, do_bs, do_rs, kv_group,   \
+                    nsplit, need_dq, need_dkv, scale, s);                                    \
+    break;
+  switch (D) {
+    A3D_CASE(40, 48)
+    A3D_CASE(80, 80)
+    A3D_CASE(160, 160)
   }
 #undef A3D_CASE
-}
-
-// as flash_bwd_dq; dk/dv (B / kv_group, Sk, H*D) bf16 with strides dkv_*,
-// each the f32 sum over the kv_group query batches that read that K/V batch
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dk, void* dv, int B,
-                             int H, int Sq, int Sk, int D, long long q_bs, long long q_rs,
-                             long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-                             long long do_bs, long long do_rs, long long dkv_bs,
-                             long long dkv_rs, int kv_group, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define A3D_CASE(DP)                                                                       \
-  case DP:                                                                                 \
-    return launch_dkv<DP>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, q_bs, q_rs,  \
-                          k_bs, k_rs, v_bs, v_rs, do_bs, do_rs, dkv_bs, dkv_rs, kv_group, \
-                          scale, s);
-  switch ((D + 15) / 16 * 16) {
-    A3D_CASE(16)
-    A3D_CASE(32)
-    A3D_CASE(48)
-    A3D_CASE(64)
-    A3D_CASE(80)
-    A3D_CASE(96)
-    A3D_CASE(112)
-    A3D_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (rc) return rc;
+  const long long C = (long long)H * D;
+  if (need_dq) {
+    const long long n4 = (long long)B * Sq * C / 4;
+    cast_heads_kernel<<<grid_for(n4), 256, 0, s>>>(static_cast<const float*>(dq_acc),
+                                                    static_cast<bf16*>(dq), H, Sq, D, n4, scale);
+    if ((rc = (int)cudaGetLastError())) return rc;
   }
-#undef A3D_CASE
+  if (need_dkv && nsplit > 1) {
+    const long long n = (long long)(B / kv_group) * Sk * C;
+    if ((rc = cast_scaled(dk_acc, dk, n, scale, s))) return rc;
+    if ((rc = cast_scaled(dv_acc, dv, n, 1.f, s))) return rc;
+  }
+  return 0;
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

@@ -8,7 +8,9 @@ failed build or load raises; nothing here runs at import time.
 
 ``LAUNCHES`` counts kernel launches by (counter name, shape key): each
 wrapper adds one right where it launches its kernel, and nowhere else.
-A library may hold more than one kernel (``flash_bwd``: dq and dkv), and one
+One launch may serve two TPU kernels (``flash_bwd``'s single pass writes
+what the TPU's dq and dkv kernels wrote: it counts one ``flash_bwd_dq`` when
+it writes dq and one ``flash_bwd_dkv`` when it writes dk / dv), and one
 kernel may serve two TPU kernels' routes (``packed_attn`` launched under
 ``attention_backend("packed_flash")`` counts as ``packed_temporal``), so the
 counter names (``COUNTERS``) are the routes', not the libraries'.

@@ -4,7 +4,8 @@ Port of ``animate3d_tpu/ops/attention.py``. Public functions take merged
 heads, q ``(B, Sq, H*D)`` and k/v ``(B', Sk, H*D)``, like the JAX module.
 
 * :func:`flash_attention` — kernel A (``csrc/flash_fwd.cu``), the TPU's
-  ``flash_attention_padded`` route. Returns ``(out, lse)``.
+  ``flash_attention_padded`` route (and its unpadded ``_flash_attention`` at
+  160-wide heads). Returns ``(out, lse)``.
 * :func:`packed_attention` — kernel B (``csrc/packed_attn.cu``), the TPU's
   ``packed_temporal_flash_padded`` route over many short sequences.
 * :func:`flash_attention_bwd` — kernel D (``csrc/flash_bwd.cu``), the
@@ -165,6 +166,15 @@ def _packed_bwd_plain(q, k, v, g, num_heads: int, scale: float):
     return dq, dk, dv
 
 
+FLASH_HEAD_DIMS = (40, 80, 160)  # SD1.5's head widths at 320, 640, 1280 channels
+
+
+def flash_kernel_takes(head_dim: int) -> bool:
+    """Whether kernels A and D take heads ``head_dim`` wide: the three SD1.5
+    widths, the only ones a flash site of the UNet has."""
+    return head_dim in FLASH_HEAD_DIMS
+
+
 def _check_merged(name: str, x: torch.Tensor, head_dim: int, device) -> None:
     if x.device != device or x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: kernel takes bfloat16 on {device}, "
@@ -196,16 +206,30 @@ def _packed_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_bwd_fns():
-    lib = _build.library("flash_bwd")
-    dq_fn, dkv_fn = lib.flash_bwd_dq, lib.flash_bwd_dkv
-    dq_fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
-                      + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    dkv_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    for fn in (dq_fn, dkv_fn):
-        fn.restype = ctypes.c_int
-    return dq_fn, dkv_fn
+def _flash_bwd_fn():
+    fn = _build.library("flash_bwd").flash_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def flash_bwd_split(kv_batches: int, sk: int, num_heads: int, kv_group: int,
+                    sms: int = 132) -> int:
+    """Over how many CTAs kernel D splits the kv_group query batches of each
+    K/V key tile: doubling (while it divides kv_group) until the grid has
+    four CTAs an SM, so the I2V shapes (one K/V batch for 16 query batches)
+    fill the card. Their dk / dv then meet in f32 scratch."""
+    ctas = -(-sk // 128) * num_heads * kv_batches
+    split = 1
+    while kv_group % (2 * split) == 0 and ctas * split < 4 * sms:
+        split *= 2
+    return split
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,7 +258,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _flash_plain(q, k, v, num_heads, scale, kv_group)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_merged(f"flash_attention {name}", x, d, q.device)
-    if not (0 < d <= 128 and sk > 0) or c != num_heads * d:
+    if not (flash_kernel_takes(d) and sk > 0) or c != num_heads * d:
         raise ValueError(f"flash_attention: unsupported D={d}, Sk={sk}")
     out = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
@@ -256,8 +280,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its inputs, its ``out`` and ``lse`` and the cotangent ``do`` (B, Sq,
     H*D). dk/dv (B // kv_group, Sk, H*D) sum over the kv_group query
     batches of each K/V batch. On CUDA, ``need_dq`` / ``need_dkv`` False
-    skip that kernel and return None in its place; CPU tensors take the
-    plain version, which returns all three."""
+    skip that gradient's products in the pass and return None in its place;
+    CPU tensors take the plain version, which returns all three."""
     b, sq, c = q.shape
     sk = k.shape[1]
     d = c // num_heads
@@ -270,34 +294,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _flash_bwd_plain(q, k, v, out, lse, do, num_heads, scale, kv_group)
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
         _check_merged(f"flash_attention_bwd {name}", x, d, q.device)
-    if not (0 < d <= 128 and sk > 0) or c != num_heads * d:
+    if not (flash_kernel_takes(d) and sk > 0) or c != num_heads * d:
         raise ValueError(f"flash_attention_bwd: unsupported D={d}, Sk={sk}")
     if (lse.shape != (b, num_heads, sq) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 "
                          f"{(b, num_heads, sq)} on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
-    delta = _flash_delta(do, out, num_heads)
-    dq_fn, dkv_fn = _flash_bwd_fns()
-    stream = _build.stream_ptr(q.device)
-    common = (b, num_heads, sq, sk, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-              v.stride(0), v.stride(1), do.stride(0), do.stride(1))
-    key = (b, sq, sk, c, kv_group)
+    dev, f32 = q.device, torch.float32
+    split = flash_bwd_split(k.shape[0], sk, num_heads, kv_group, _sm_count(dev))
+    delta = torch.empty((b, num_heads, sq), dtype=f32, device=dev)
     dq = dk = dv = None
+    dq_acc = dk_acc = dv_acc = None
     if need_dq:
-        dq = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
-        rc = dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                   delta.data_ptr(), dq.data_ptr(), *common, dq.stride(0), dq.stride(1),
-                   kv_group, scale, stream)
-        _build.check("flash_bwd", rc)
+        dq_acc = torch.zeros((b, num_heads, sq, d), dtype=f32, device=dev)
+        dq = torch.empty((b, sq, c), dtype=q.dtype, device=dev)
+    if need_dkv:
+        dk = torch.empty((k.shape[0], sk, c), dtype=k.dtype, device=dev)
+        dv = torch.empty((k.shape[0], sk, c), dtype=v.dtype, device=dev)
+        if split > 1:
+            dk_acc, dv_acc = torch.zeros_like(dk, dtype=f32), torch.zeros_like(dv, dtype=f32)
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    rc = _flash_bwd_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), ptr(dq_acc), ptr(dq), ptr(dk), ptr(dv),
+        ptr(dk_acc), ptr(dv_acc), b, num_heads, sq, sk, d, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        do.stride(0), do.stride(1), kv_group, split, int(need_dq), int(need_dkv), scale,
+        _build.stream_ptr(dev))
+    _build.check("flash_bwd", rc)
+    # one launch of the pass; it counts under each gradient it writes
+    key = (b, sq, sk, c, kv_group)
+    if need_dq:
         _build.LAUNCHES["flash_bwd_dq", key] += 1
     if need_dkv:
-        dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-        dv = torch.empty(k.shape, dtype=v.dtype, device=q.device)
-        rc = dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common, dk.stride(0),
-                    dk.stride(1), kv_group, scale, stream)
-        _build.check("flash_bwd", rc)
         _build.LAUNCHES["flash_bwd_dkv", key] += 1
     return dq, dk, dv
 
@@ -438,12 +468,14 @@ def packed_plan(batch: int, seq: int, channels: int, num_heads: int) -> bool:
 
 def flash_plan(batch: int, sq: int, sk: int, channels: int,
                num_heads: int) -> bool:
-    """Shape predicate of the TPU's ``padded_flash_plan``: head dim below
-    128, Sk a multiple of 512 and more than 512 MiB of f32 logits."""
-    d = channels // num_heads
+    """The TPU's flash rule as a whole: Sk a multiple of 512 and more than
+    512 MiB of f32 logits. Below 128-wide heads that is ``padded_flash_plan``
+    (the layers' lane-padded route); at 128 and wider the layers fall through
+    to ``multi_head_attention``, whose auto rule on the TPU takes the unpadded
+    ``_flash_attention`` on the same condition (the 160-wide L2 sites at 512^2
+    and up)."""
     logits_bytes = batch * num_heads * sq * sk * 4
-    return (d < 128 and sk % _FLASH_BLOCK_K == 0
-            and logits_bytes > _LOGITS_FLASH_BYTES)
+    return sk % _FLASH_BLOCK_K == 0 and logits_bytes > _LOGITS_FLASH_BYTES
 
 
 def attention_plan(batch: int, sq: int, sk: int, channels: int,
@@ -487,8 +519,8 @@ def forced_plan(batch: int, sq: int, sk: int, channels: int, num_heads: int,
 
     * ``flash``: kernel B's route for the padded packed plan's temporal
       shapes (the pinned quirk: a forced flash still packs them), else
-      "flash" (kernel A, whose wrapper raises on CUDA at a head width over
-      128) where Sk is a multiple of 512, else "plain";
+      "flash" (kernels A and D, at every head width of ``flash_kernel_takes``)
+      where Sk is a multiple of 512, else "plain";
     * ``packed``: "packed_plain" (B's plain version, the XLA packed path) on
       packable shapes (equal q/k/v, S <= 32, at least two packs), else
       "plain";

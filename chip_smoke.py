@@ -10,14 +10,18 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
 2. kernels: each hand-written kernel at the main paths' shapes against its
    plain PyTorch version on the same inputs (max |diff| within the stated
    tolerance), with kernel / plain / library times and the card's bound for
-   the same work: A-E at the sampling and training shapes (F: kernel B
+   the same work (the largest of tensor-core flops, ex2 at the SFU's rate,
+   and bytes): A-E at the sampling (256^2 and 512^2) and training shapes
+   and D at the 160-wide L2 shape (F: kernel B
    under ``attention_backend("packed_flash")`` at L0 and L2), H at every
    stage-1 shape (recon steps, four-view test, validation orbit, testset
    grid), G at the 64^2 recon shapes and on dense synthetic tiles; then
    edge shapes off the main path (G against float64 among them);
 3. end to end: the sampling CLI at full width (SD1.5 widths, 256x256,
    4 views x 16 frames, 2 DDIM steps, random weights from a seed) with every
-   launch counter set to 0 just before and read just after;
+   launch counter set to 0 just before and read just after; then again at
+   512x512 (the 160-wide L2 sites on kernel A too), its launch counts
+   asserted exactly, with its step seconds and peak memory;
 4. profile and reference: one full-width UNet forward on the CFG batch
    under torch.profiler (device time by kernel family), and one forward
    through the kernels against the same forward through the plain versions;
@@ -68,6 +72,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
+PEAK_EX2 = 3.9e12  # H100 SXM SFU: 16 ex2 a clock an SM x 132 SMs x 1.83 GHz
 
 COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
             "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd",
@@ -81,6 +86,11 @@ def _per(**counts) -> dict:
 # per UNet forward at full width (SD1.5 topology, 4 views x 16 frames, 256^2)
 # on the CFG batch of sampling; no backward kernel runs there
 PER_FORWARD = _per(flash_fwd=40, packed_attn=20, geglu=37)
+# the same at 512^2 (64x64 latents): the 1280-channel L2 sites (S 1024, 160-wide
+# heads, 1.07 GB of f32 logits) cross the 512 MiB line too, so the cross-view
+# attn1 and I2V branch of its 5 transformers and the spatial branch of its 10
+# motion-module blocks take kernel A as well: 20 more
+PER_FORWARD_512 = _per(flash_fwd=60, packed_attn=20, geglu=37)
 # per train step (one video: batch 16 frames per view-major UNet call) with
 # gradient checkpointing: every kernel site's forward runs twice (forward and
 # the block's recompute in backward); L1 flash sites fall under the 512 MiB
@@ -88,7 +98,9 @@ PER_FORWARD = _per(flash_fwd=40, packed_attn=20, geglu=37)
 # down_blocks.0.attentions.0 needs no gradient at all (its q/k/v come from
 # frozen weights and the latents), and its I2V branch needs dq only (k/v are
 # frame 0's frozen projections), so 20 L0 sites give 19 dq and 18 dk/dv
-# launches; E runs at all 20 temporal sites.
+# counts; E runs at all 20 temporal sites. D is one pass a site that writes
+# the gradients its inputs need: it counts one flash_bwd_dq where it writes
+# dq and one flash_bwd_dkv where it writes dk / dv (19 launches a step).
 PER_TRAIN_STEP = _per(flash_fwd=40, packed_attn=40, geglu=74, flash_bwd_dq=19,
                       flash_bwd_dkv=18, packed_attn_bwd=20)
 # per recon step: the step's renders (all views x its frames) are one batch
@@ -137,9 +149,14 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def _bound_ms(flops: float, nbytes: float, ex2: float = 0.0):
+    """(least ms, "operations" or "bytes", the binding term): the largest of
+    the tensor-core flops at the bf16 peak, the ex2 at the SFU's rate (one
+    a score for the attention kernels) and the bytes at the HBM rate."""
+    terms = {"tensor": flops / PEAK_BF16_FLOPS, "ex2": ex2 / PEAK_EX2,
+             "bytes": nbytes / PEAK_BYTES}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, ("bytes" if term == "bytes" else "operations"), term
 
 
 REL_L2_TOL = 1e-2
@@ -209,10 +226,11 @@ def _flash_case(label, b, s, c, heads, kv_group, gen):
         qh, kh, vh, scale=scale), 10)
     flops = 4.0 * b * heads * s * s * d
     nbytes = 2.0 * (2 * b * s * c + 2 * (b // kv_group) * s * c) + 4.0 * b * heads * s
-    bound, by = _bound_ms(flops, nbytes)
+    bound, by, term = _bound_ms(flops, nbytes, ex2=1.0 * b * heads * s * s)
     return dict(name="flash_fwd", shape=label, keys=[("flash_fwd", (b, s, s, c, kv_group))],
                 max_abs_err=err, tol=tol, rel=rel, lse_err=lse_err, ok=ok, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                term=term)
 
 
 def _packed_case(label, b, s, c, heads, gen, backend=None):
@@ -245,10 +263,10 @@ def _packed_case(label, b, s, c, heads, gen, backend=None):
     qh, kh, vh = (x.reshape(b, s, heads, d).transpose(1, 2).contiguous() for x in (q, k, v))
     lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, scale=scale), 20)
-    bound, by = _bound_ms(4.0 * b * heads * s * s * d, 2.0 * 4 * b * s * c)
+    bound, by, term = _bound_ms(4.0 * b * heads * s * s * d, 2.0 * 4 * b * s * c)
     return dict(name=name, shape=label, keys=[(name, (b, s, c))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
 
 
 def _geglu_case(label, m, c, inner, gen):
@@ -276,10 +294,10 @@ def _geglu_case(label, m, c, inner, gen):
 
     lib_ms = _time_ms(library, 10)
     nbytes = 2.0 * (2 * m * c + 3 * inner * c + 2 * inner + c)
-    bound, by = _bound_ms(6.0 * m * c * inner, nbytes)
+    bound, by, term = _bound_ms(6.0 * m * c * inner, nbytes)
     return dict(name="geglu", shape=label, keys=[("geglu", (m, c, inner))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
 
 
 def _sdpa_bwd_ms(q, k, v, do, heads, scale, kv_group, iters):
@@ -330,12 +348,12 @@ def _flash_bwd_case(label, b, s, c, heads, kv_group, gen):
     lib_ms = _sdpa_bwd_ms(q, k, v, do, heads, scale, kv_group, 5)
     flops = 10.0 * b * heads * s * s * d  # S, dP, dV, dK, dQ
     nbytes = 2.0 * (4 * b * s * c + 4 * (b // kv_group) * s * c) + 4.0 * b * heads * s
-    bound, by = _bound_ms(flops, nbytes)
+    bound, by, term = _bound_ms(flops, nbytes, ex2=1.0 * b * heads * s * s)
     key = (b, s, s, c, kv_group)
     return dict(name="flash_bwd", shape=label,
                 keys=[("flash_bwd_dq", key), ("flash_bwd_dkv", key)],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
 
 
 def _packed_bwd_case(label, b, s, c, heads, gen):
@@ -354,10 +372,10 @@ def _packed_bwd_case(label, b, s, c, heads, gen):
     ms = _time_ms(lambda: A.packed_attention_bwd(*args), 20)
     plain_ms = _time_ms(lambda: A._packed_bwd_plain(*args), 5)
     lib_ms = _sdpa_bwd_ms(q, k, v, g, heads, scale, 1, 20)
-    bound, by = _bound_ms(10.0 * b * heads * s * s * d, 2.0 * 7 * b * s * c)
+    bound, by, term = _bound_ms(10.0 * b * heads * s * s * d, 2.0 * 7 * b * s * c)
     return dict(name="packed_attn_bwd", shape=label, keys=[("packed_attn_bwd", (b, s, c))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
 
 
 def kernel_phase() -> list:
@@ -372,8 +390,21 @@ def kernel_phase() -> list:
         _flash_case("L1 cross-view (32, 1024, 640) h8", 32, 1024, 640, 8, 1, gen),
         _flash_case("L1 i2v frame-0 K/V (32, 1024, 640) h8 kv_group 16",
                     32, 1024, 640, 8, 16, gen),
+        # the 512^2 sampling path (phase 3b): L0 and L1 at four times the
+        # tokens, and the 160-wide L2 cross-view / spatial and i2v sites
+        _flash_case("512 L0 cross-view (32, 16384, 320) h8", 32, 16384, 320, 8, 1, gen),
+        _flash_case("512 L0 i2v frame-0 K/V (32, 16384, 320) h8 kv_group 16",
+                    32, 16384, 320, 8, 16, gen),
+        _flash_case("512 L1 cross-view (32, 4096, 640) h8", 32, 4096, 640, 8, 1, gen),
+        _flash_case("512 L1 i2v frame-0 K/V (32, 4096, 640) h8 kv_group 16",
+                    32, 4096, 640, 8, 16, gen),
+        _flash_case("512 L2 cross-view (32, 1024, 1280) h8", 32, 1024, 1280, 8, 1, gen),
+        _flash_case("512 L2 i2v frame-0 K/V (32, 1024, 1280) h8 kv_group 16",
+                    32, 1024, 1280, 8, 16, gen),
         _packed_case("L0 temporal (8192, 16, 320) h8", 8192, 16, 320, 8, gen),
         _packed_case("L1 temporal (2048, 16, 640) h8", 2048, 16, 640, 8, gen),
+        _packed_case("512 L0 temporal (32768, 16, 320) h8", 32768, 16, 320, 8, gen),
+        _packed_case("512 L1 temporal (8192, 16, 640) h8", 8192, 16, 640, 8, gen),
         _packed_case("L0 temporal (8192, 16, 320) h8, backend packed_flash",
                      8192, 16, 320, 8, gen, backend="packed_flash"),
         _packed_case("L2 temporal (512, 16, 1280) h8, backend packed_flash",
@@ -382,6 +413,9 @@ def kernel_phase() -> list:
         _geglu_case("L1 M=32768 C=640 I=2560", 32768, 640, 2560, gen),
         _geglu_case("L2 M=8192 C=1280 I=5120", 8192, 1280, 5120, gen),
         _geglu_case("L3 M=2048 C=1280 I=5120", 2048, 1280, 5120, gen),
+        _geglu_case("512 L0 M=524288 C=320 I=1280", 524288, 320, 1280, gen),
+        _geglu_case("512 L1 M=131072 C=640 I=2560", 131072, 640, 2560, gen),
+        _geglu_case("512 L2 M=32768 C=1280 I=5120", 32768, 1280, 5120, gen),
     ]
     # the trainer's shapes: one video, 4 views x 16 frames = 64 frames
     rows += [
@@ -397,6 +431,11 @@ def kernel_phase() -> list:
         _flash_bwd_case("train L0 cross-view (16, 4096, 320) h8", 16, 4096, 320, 8, 1, gen),
         _flash_bwd_case("train L0 i2v frame-0 K/V (16, 4096, 320) h8 kv_group 16",
                         16, 4096, 320, 8, 16, gen),
+        # D at 160-wide heads (the L2 sites' backward at a batch over the
+        # 512 MiB line; the trainer's 256^2 L2 sites sit exactly on it)
+        _flash_bwd_case("L2 cross-view (16, 1024, 1280) h8", 16, 1024, 1280, 8, 1, gen),
+        _flash_bwd_case("L2 i2v frame-0 K/V (16, 1024, 1280) h8 kv_group 16",
+                        16, 1024, 1280, 8, 16, gen),
         _packed_bwd_case("train L0 temporal (4096, 16, 320) h8", 4096, 16, 320, 8, gen),
         _packed_bwd_case("train L1 temporal (1024, 16, 640) h8", 1024, 16, 640, 8, gen),
         # F's route's backward (phase 6, under packed_flash) at the sampling L0 and
@@ -411,13 +450,15 @@ def kernel_phase() -> list:
         print(f"[kernel] {r['name']:<15} {r['shape']:<58} max|d| {r['max_abs_err']:.3e} "
               f"(tol {r['tol']:.3e}) rel L2 {r['rel']:.3e} (tol {REL_L2_TOL:.0e}){extra} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}) {'ok' if r['ok'] else 'FAIL'}")
+              f"({r['bound_by']}: {r['term']}) {'ok' if r['ok'] else 'FAIL'}")
     return rows
 
 
-def e2e_phase(tmp: str) -> dict:
-    """The sampling CLI at full width, launch counters zeroed just before
-    and read just after."""
+def e2e_phase(tmp: str, res: int = 256, per_forward: dict = PER_FORWARD,
+              tag: str = "e2e") -> dict:
+    """The sampling CLI at full width and ``res`` x ``res``, launch counters
+    zeroed just before and read just after: at least ``per_forward`` a UNet
+    forward at 256^2 (phase 3), exactly that at 512^2 (phase 3b)."""
     from PIL import Image
 
     from animate3d_tpu_torch.cli.inference import main as cli_main
@@ -425,36 +466,38 @@ def e2e_phase(tmp: str) -> dict:
 
     rng = np.random.default_rng(0)
     for i in range(4):
-        Image.fromarray(rng.integers(0, 255, (256, 256, 3), dtype=np.uint8)).save(
+        Image.fromarray(rng.integers(0, 255, (res, res, 3), dtype=np.uint8)).save(
             os.path.join(tmp, f"{i}.png"))
     steps, iters = 2, 1
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    res = cli_main(["--model_size", "full", "-W", "256", "-H", "256", "-N", "4", "-L", "16",
-                    "--steps", str(steps), "--freeinit_iters", str(iters), "--seed", "0",
-                    "--ip_image_root", tmp, "--output_dir", os.path.join(tmp, "out")])
+    out = cli_main(["--model_size", "full", "-W", str(res), "-H", str(res), "-N", "4",
+                    "-L", "16", "--steps", str(steps), "--freeinit_iters", str(iters),
+                    "--seed", "0", "--ip_image_root", tmp,
+                    "--output_dir", os.path.join(tmp, f"out{res}")])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     totals = _build.launch_totals()
     per_shape = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    lat = res["latents"]
-    with Image.open(res["gif"]) as gif:
+    lat = out["latents"]
+    with Image.open(out["gif"]) as gif:
         gif_frames = gif.n_frames
     unet_calls = steps * iters
-    ok = (tuple(lat.shape) == (4, 16, 32, 32, 4) and bool(torch.isfinite(lat).all())
-          and gif_frames == 16
-          and all(totals[k] >= n * unet_calls for k, n in PER_FORWARD.items()))
-    print(f"[e2e] full width 256x256, 4 views x 16 frames, {steps} steps x {iters} FreeInit "
-          f"iteration(s): wall {wall:.2f} s, step seconds "
-          + ", ".join(f"{t:.4f}" for t in res["step_seconds"])
+    counts_ok = all((totals[k] == n * unet_calls) if res != 256 else (totals[k] >= n * unet_calls)
+                    for k, n in per_forward.items())
+    ok = (tuple(lat.shape) == (4, 16, res // 8, res // 8, 4)
+          and bool(torch.isfinite(lat).all()) and gif_frames == 16 and counts_ok)
+    print(f"[{tag}] full width {res}x{res}, 4 views x 16 frames, {steps} steps x {iters} "
+          f"FreeInit iteration(s): wall {wall:.2f} s, step seconds "
+          + ", ".join(f"{t:.4f}" for t in out["step_seconds"])
           + f"; peak memory {peak_gb:.2f} GiB; gif frames {gif_frames}; latents "
           f"{tuple(lat.shape)} finite {bool(torch.isfinite(lat).all())}")
-    for k, n in PER_FORWARD.items():
-        print(f"[e2e] launches {k}: {totals[k]} (expected {n} per UNet forward x "
+    for k, n in per_forward.items():
+        print(f"[{tag}] launches {k}: {totals[k]} (expected {n} per UNet forward x "
               f"{unet_calls} forwards = {n * unet_calls})")
-    return dict(ok=ok, per_shape=per_shape, step_s=res["step_seconds"][1],
+    return dict(ok=ok, per_shape=per_shape, step_s=out["step_seconds"][1],
                 wall_s=wall, peak_gb=peak_gb)
 
 
@@ -471,8 +514,10 @@ def _family(name: str) -> str:
                      ("flash_fwd_kernel", "kernel A flash_fwd"),
                      ("packed_attn_kernel", "kernel B packed_attn"),
                      ("geglu_gemm_kernel", "kernel C geglu"),
-                     ("flash_bwd_dq_kernel", "kernel D flash_bwd dq"),
-                     ("flash_bwd_dkv_kernel", "kernel D flash_bwd dk/dv"),
+                     ("flash_bwd_delta_kernel", "kernel D flash_bwd Delta"),
+                     ("flash_bwd_kernel", "kernel D flash_bwd pass"),
+                     ("cast_scaled_kernel", "kernel D flash_bwd cast"),
+                     ("cast_heads_kernel", "kernel D flash_bwd cast"),
                      ("packed_attn_bwd_kernel", "kernel E packed_attn_bwd"),
                      ("softmax", "plain attention softmax"),
                      ("conv", "convolution (cuDNN)"), ("xmma_fprop", "convolution (cuDNN)"),
@@ -1405,6 +1450,12 @@ def main() -> int:
         return _fail("the end-to-end run failed its checks")
     if unchecked("sampling", e2e):
         return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e512 = e2e_phase(tmp, 512, PER_FORWARD_512, "e2e-512")
+    if not e2e512["ok"]:
+        return _fail("the 512x512 sampling run failed its checks")
+    if unchecked("sampling-512", e2e512):
+        return 1
     if not reference_phase()["ok"]:
         return _fail("kernels disagree with plain ops end to end")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1454,6 +1505,8 @@ def main() -> int:
             return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
+    print(f"[summary] seconds per denoise step at 512x512: {e2e512['step_s']:.4f}; peak "
+          f"memory {e2e512['peak_gb']:.2f} GiB; card {env['smi']}")
     print(f"[summary] seconds per train step (full width, gradient checkpointing, mean of "
           f"the steps after the first): {train['step_s']:.4f}; peak memory "
           f"{train['peak_gb']:.2f} GiB; card {env['smi']}")

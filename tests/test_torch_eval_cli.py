@@ -150,11 +150,12 @@ def test_packed_flash_plain_path_matches_pallas_kernel(head_dim):
 
 # (batch, sq, sk, channels, heads, self-attention) of the UNet's sites at
 # 256² (the CFG batch): spatial / cross-view flash sites, text cross-attention,
-# temporal sites at L0-L3; and an L2 cross-view site at 512² (160-wide heads)
+# temporal sites at L0-L3; and L2 cross-view sites at 512² (160-wide heads),
+# one of them at the CFG batch
 _SITES = [(32, 4096, 4096, 320, 8, True), (32, 1024, 1024, 640, 8, True),
           (128, 1024, 77, 320, 8, False), (8192, 16, 16, 320, 8, True),
           (2048, 16, 16, 640, 8, True), (512, 16, 16, 1280, 8, True),
-          (8, 1024, 1024, 1280, 8, True)]
+          (8, 1024, 1024, 1280, 8, True), (32, 1024, 1024, 1280, 8, True)]
 
 
 @pytest.mark.parametrize("backend", ["xla", "flash", "packed", "packed_flash"])
@@ -185,6 +186,8 @@ def test_forced_backends_route_as_jax(backend, monkeypatch):
         assert mine == jax_route, (backend, b, sq, sk, c)
         if mine == "packed_flash":
             assert TA.packed_kernel_takes(sq, c // h), (sq, c, h)
+        if mine == "flash":  # kernels A and D take it: the wrapper does not raise
+            assert TA.flash_kernel_takes(c // h), (sq, c, h)
         if backend != "flash":
             assert TA.forced_plan(b, sq, sk, c, h, self_attn, sq == sk, False, backend) != \
                 "packed_flash"

@@ -25,17 +25,26 @@ def _merged_and_padded(rng, b, s, h, d):
     return x, jnp.asarray(xp.reshape(b, s, h * JA.DP))
 
 
-@pytest.mark.parametrize("b,s,h,d", [(2, 512, 2, 40), (1, 2048, 1, 40)])
+@pytest.mark.parametrize("b,s,h,d", [(2, 512, 2, 40), (1, 2048, 1, 40), (2, 512, 2, 160)])
 def test_flash_plain_matches_pallas_kernel(b, s, h, d):
     # S=2048 is the TPU kernel's skip-max regime (Sk >= 2048, logits
     # clamped at 110 in base 2); on in-distribution inputs the clamp never
-    # binds, so the port's exact online softmax agrees with it
+    # binds, so the port's exact online softmax agrees with it. Heads 160
+    # wide take the TPU's unpadded kernel (multi_head_attention's route
+    # at d >= 128), the others its lane-padded merged-head one.
     rng = np.random.default_rng(0)
-    (q, qp), (k, kp), (v, vp) = (_merged_and_padded(rng, b, s, h, d) for _ in range(3))
+    if d >= JA.DP:
+        q, k, v = (rng.normal(size=(b, s, h * d)).astype(np.float32) for _ in range(3))
+        with jax.default_matmul_precision("highest"):
+            ref_o, ref_lse = JA._flash_attention_fwd_impl(
+                _to_bhsd(q, h), _to_bhsd(k, h), _to_bhsd(v, h), d ** -0.5)
+        ref, ref_lse = _to_merged(ref_o), np.asarray(ref_lse).reshape(b * h, s, -1)
+    else:
+        (q, qp), (k, kp), (v, vp) = (_merged_and_padded(rng, b, s, h, d) for _ in range(3))
+        with jax.default_matmul_precision("highest"):
+            ref_p, ref_lse = JA._flash_fwd_impl_merged(qp, kp, vp, h, d ** -0.5)
+        ref = np.asarray(ref_p).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
     scale = d ** -0.5
-    with jax.default_matmul_precision("highest"):
-        ref_p, ref_lse = JA._flash_fwd_impl_merged(qp, kp, vp, h, scale)
-    ref = np.asarray(ref_p).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
     out, lse = TA.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                   torch.from_numpy(v), h, scale)
     np.testing.assert_allclose(out.numpy(), ref, atol=3e-5, rtol=1e-4)
@@ -88,8 +97,11 @@ def test_geglu_plain_matches_pallas_kernel():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
-# full-width attention sites of the main path and of a 4-frame clip: (query
-# batch, Sq, Sk, C, heads, self-attention, which JAX predicate routes it)
+# full-width attention sites of the main path (CFG batch: 2 x 4 views x 16
+# frames) at 256^2, 512^2 and one at 1024^2, and of a 4-frame clip: (query
+# batch, Sq, Sk, C, heads, self-attention, which padded JAX predicate the
+# layer asks first). A site whose padded predicate declines falls through to
+# JAX's multi_head_attention and its auto rule.
 _SITES = [
     ("L0 cross-view attn1 / spatial branch", 32, 4096, 4096, 320, 8, True, "flash"),
     ("L1 cross-view attn1 / spatial branch", 32, 1024, 1024, 640, 8, True, "flash"),
@@ -103,22 +115,88 @@ _SITES = [
     ("L2 temporal", 512, 16, 16, 1280, 8, True, "packed"),
     ("L3 temporal", 128, 16, 16, 1280, 8, True, "packed"),
     ("L0 temporal, a 4-frame clip", 2048, 4, 4, 320, 8, True, "packed"),
+    ("512 L0 cross-view attn1 / spatial branch", 32, 16384, 16384, 320, 8, True, "flash"),
+    ("512 L0 i2v frame-0 K/V", 32, 16384, 16384, 320, 8, False, "flash"),
+    ("512 L1 cross-view attn1 / spatial branch", 32, 4096, 4096, 640, 8, True, "flash"),
+    ("512 L1 i2v frame-0 K/V", 32, 4096, 4096, 640, 8, False, "flash"),
+    ("512 L2 cross-view attn1", 32, 1024, 1024, 1280, 8, True, "flash"),
+    ("512 L2 spatial branch", 32, 1024, 1024, 1280, 8, True, "flash"),
+    ("512 L2 i2v frame-0 K/V", 32, 1024, 1024, 1280, 8, False, "flash"),
+    ("512 L3 cross-view attn1", 32, 256, 256, 1280, 8, True, "flash"),
+    ("512 L0 text cross-attn", 128, 4096, 77, 320, 8, False, "flash"),
+    ("512 L0 temporal", 32768, 16, 16, 320, 8, True, "packed"),
+    ("512 L2 temporal", 2048, 16, 16, 1280, 8, True, "packed"),
+    ("1024 L2 cross-view attn1 / spatial branch", 32, 4096, 4096, 1280, 8, True, "flash"),
 ]
+
+
+def _jax_route(b, sq, sk, c, heads, self_attn, jax_pred, monkeypatch):
+    """The JAX layer's route on the TPU, in the layer's own order: its
+    padded predicate first, else ``multi_head_attention``'s auto rule, traced
+    under ``jax.eval_shape`` (nothing is allocated at full shapes) with
+    ``_flash_attention`` patched to record that the rule took it."""
+    padded = (JA.padded_flash_plan(b, sq, sk, c, heads) if jax_pred == "flash"
+              else self_attn and JA.padded_packed_plan(b, sq, c, heads))
+    if padded:
+        return jax_pred
+    took = []
+
+    def flash(q, k, v, scale):
+        took.append(q.shape)
+        return JA.attention_xla(q, k, v, scale)
+
+    monkeypatch.setattr(JA, "_flash_attention", flash)
+    spec = lambda s: jax.ShapeDtypeStruct((b, s, c), jnp.bfloat16)
+    jax.eval_shape(lambda q, k, v: JA.multi_head_attention(q, k, v, heads),
+                   spec(sq), spec(sk), spec(sk))
+    return "flash" if took else "plain"
 
 
 @pytest.mark.parametrize("site", _SITES, ids=[s[0] for s in _SITES])
 def test_routing_matches_jax_predicates(site, monkeypatch):
     """The port's attention_plan on CUDA takes a kernel exactly where the
-    JAX routing on the TPU takes its Pallas kernel at the main-path shapes."""
+    JAX routing on the TPU takes its Pallas kernel, at every head width and
+    resolution: the lane-padded plans below 128-wide heads, the unpadded
+    flash kernel of multi_head_attention's auto rule at 160. Every site
+    routed to "flash" has a head width kernels A and D take."""
     _, b, sq, sk, c, heads, self_attn, jax_pred = site
     monkeypatch.setattr(JA.jax, "default_backend", lambda: "tpu")
-    if jax_pred == "flash":
-        jax_kernel = JA.padded_flash_plan(b, sq, sk, c, heads)
-    else:
-        jax_kernel = JA.padded_packed_plan(b, sq, c, heads)
+    jax_route = _jax_route(b, sq, sk, c, heads, self_attn, jax_pred, monkeypatch)
     plan = TA.attention_plan(b, sq, sk, c, heads, self_attn, on_cuda=True)
-    assert plan == (jax_pred if jax_kernel else "plain")
+    assert plan == jax_route
+    if plan == "flash":
+        assert TA.flash_kernel_takes(c // heads), (c, heads)
     assert TA.attention_plan(b, sq, sk, c, heads, self_attn, on_cuda=False) == "plain"
+
+
+def test_flash_plan_takes_160_wide_heads_at_512():
+    # the L2 cross-view / spatial sites at 512^2: 1.07 GB of f32 logits
+    assert TA.attention_plan(32, 1024, 1024, 1280, 8, True, on_cuda=True) == "flash"
+    assert TA.attention_plan(32, 1024, 1024, 1280, 8, False, on_cuda=True) == "flash"
+
+
+def test_flash_kernel_takes_the_sd15_head_widths():
+    """Kernels A and D take 40-, 80- and 160-wide heads and nothing else, so
+    a forced flash at another width raises on CUDA rather than going plain."""
+    assert TA.FLASH_HEAD_DIMS == (40, 80, 160)
+    for d in (40, 80, 160):
+        assert TA.flash_kernel_takes(d)
+    for d in (8, 32, 64, 96, 128, 144, 168, 256, 320):
+        assert not TA.flash_kernel_takes(d), d
+
+
+@pytest.mark.parametrize("kv_batches,sk,heads,kv_group,split", [
+    (16, 4096, 8, 1, 1),   # train L0: 4096 CTAs, no split
+    (1, 4096, 8, 16, 4),   # train L0 i2v: 256 key-tile CTAs -> 1024
+    (1, 1024, 8, 16, 16),  # L2 i2v: 64 -> 1024, one query batch a CTA
+    (2, 16384, 8, 16, 1),  # 512^2 L0 i2v: 2048 CTAs already
+    (2, 197, 1, 2, 2),     # a ragged key tile, kv_group 2
+])
+def test_flash_bwd_split_fills_the_card(kv_batches, sk, heads, kv_group, split):
+    """Kernel D splits a K/V batch's kv_group query batches over CTAs (a
+    divisor of kv_group) until the grid has four CTAs an SM of 132."""
+    got = TA.flash_bwd_split(kv_batches, sk, heads, kv_group)
+    assert got == split and kv_group % got == 0
 
 
 @pytest.mark.parametrize("m,c,inner", [(131072, 320, 1280), (32768, 640, 2560),
@@ -170,11 +248,15 @@ def test_kernels_match_plain_on_cuda():
         assert (out - ref).abs().max() <= 2 ** -6 * ref.abs().max()
         assert (out - ref).norm() <= 1e-2 * ref.norm()
 
-    q, k, v = rnd(4, 1024, 320), rnd(4, 1024, 320), rnd(4, 1024, 320)
-    out, lse = TA.flash_attention(q, k, v, 8, 40 ** -0.5)
-    ref, ref_lse = TA._flash_plain(q, k, v, 8, 40 ** -0.5, 1)
-    assert_agree(out, ref)
-    assert (lse - ref_lse).abs().max() < 1e-3
+    # kernel A at each head width it takes, and at the I2V kv_group 16
+    for b, c, kv_group in ((4, 320, 1), (4, 640, 1), (4, 1280, 1), (16, 320, 16)):
+        d = c // 8
+        q = rnd(b, 1024, c)
+        k, v = rnd(b // kv_group, 1024, c), rnd(b // kv_group, 1024, c)
+        out, lse = TA.flash_attention(q, k, v, 8, d ** -0.5, kv_group)
+        ref, ref_lse = TA._flash_plain(q, k, v, 8, d ** -0.5, kv_group)
+        assert_agree(out, ref)
+        assert (lse - ref_lse).abs().max() < 1e-3
     q, k, v = rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640)
     out = TA.packed_attention(q, k, v, 8, 80 ** -0.5)
     ref = TA.packed_small_attention(q, k, v, 8, 80 ** -0.5)
@@ -194,7 +276,7 @@ def _to_merged(x):
     return np.asarray(x).transpose(0, 2, 1, 3).reshape(b, s, h * d)
 
 
-@pytest.mark.parametrize("d,kv_group", [(40, 1), (80, 1), (40, 2)])
+@pytest.mark.parametrize("d,kv_group", [(40, 1), (80, 1), (40, 2), (160, 1), (160, 2)])
 def test_flash_bwd_plain_matches_pallas_vjp(d, kv_group):
     """The plain backward of kernel D against jax.vjp of _flash_attention,
     whose VJP runs the Pallas dq / dkv kernels (interpret mode), on JAX's
@@ -318,10 +400,15 @@ def test_backward_kernels_match_plain_on_cuda():
             assert (out - ref).abs().max() <= 2 ** -6 * ref.abs().max()
             assert (out - ref).norm() <= 1e-2 * ref.norm()
 
-    for kv_group in (1, 4):
-        q, k, v = rnd(4, 1024, 320), rnd(4 // kv_group, 1024, 320), rnd(4 // kv_group, 1024, 320)
-        out, lse = TA.flash_attention(q, k, v, 8, 40 ** -0.5, kv_group)
-        args = (q, k, v, out, lse, rnd(4, 1024, 320), 8, 40 ** -0.5, kv_group)
+    # kernel D at each head width it takes, and at kv_group 4 and 16 (the
+    # I2V shape, whose query batches it splits over CTAs)
+    for b, c, kv_group in ((4, 320, 1), (4, 320, 4), (4, 640, 1), (4, 1280, 1),
+                           (16, 320, 16), (16, 1280, 16)):
+        d = c // 8
+        q = rnd(b, 1024, c)
+        k, v = rnd(b // kv_group, 1024, c), rnd(b // kv_group, 1024, c)
+        out, lse = TA.flash_attention(q, k, v, 8, d ** -0.5, kv_group)
+        args = (q, k, v, out, lse, rnd(b, 1024, c), 8, d ** -0.5, kv_group)
         assert_agree(TA.flash_attention_bwd(*args), TA._flash_bwd_plain(*args))
     args = (rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640),
             8, 80 ** -0.5)
