@@ -25,17 +25,35 @@
 // front to back; the coarse tile's fields sit in shared memory (24 KB at
 // kc 512).
 //   forward: one CTA of 256 threads per fine tile.
-//   backward: one CTA per coarse tile loops its cs^2 fine tiles, as the TPU
-//     grid step does, and writes its (12, kc) gradient block once: no global
-//     atomics, the result is deterministic. Per fine tile, (1) a forward pass
-//     keeps each pixel's transmittance at every block's start (registers,
-//     kc / 128 floats); (2) the reverse pass recomputes one block from that
-//     checkpoint into shared memory (T before each candidate, 128 x 256 f32
-//     = 128 KB), so T_k needs no division by (1 - alpha); (3) it walks the
-//     block back to front with the running suffix S = sum of dw w over later
-//     candidates, reduces each candidate's 10 gradient rows over the warp by
-//     shuffles (skipped where no pixel of the warp is live) and across the 8
-//     warps in shared memory, in a fixed order.
+//   backward: a thread-block cluster of `ranks` CTAs per coarse tile;
+//     rank r takes fine tiles r, r + ranks, ..., so with ranks > 1 a coarse
+//     tile's fine tiles run in parallel where the TPU's grid step walks them
+//     in turn. The caller picks ranks (1 to min(cs^2, 16), 16 being the
+//     non-portable cluster size) so that the grid holds enough CTAs: every
+//     rank waits at the cluster barrier for the cluster's slowest fine
+//     tile, so on the recon asset, whose fine tiles differ a lot in work,
+//     one CTA a fine tile costs more than it gains once the coarse tiles
+//     alone fill the card (ops/rasterize.py::coarse_bwd_ranks). Per fine
+//     tile, (0) the CTA lists the candidates whose AABB meets the fine tile
+//     (ballot + prefix), so the walks below visit only those (about 18 of
+//     512 on an average fine tile of the recon asset); (1) a forward pass
+//     keeps each pixel's transmittance at the start of every sub-block of
+//     SB = 32 listed candidates (shared memory, as kernel G does); (2) back
+//     to front, each sub-block's T before every candidate is recomputed from
+//     that checkpoint into shared memory, so T_k needs no division by
+//     (1 - alpha); (3) the sub-block is walked back to front with the
+//     running suffix S = sum of dw w over later candidates; a candidate's 10
+//     gradient terms are summed over the warp by shuffles (skipped where no
+//     pixel of the warp is live) and across the 8 warps in shared memory in
+//     a fixed order, into the rank's (10, kc) block. (4) After a cluster
+//     barrier each rank sums the ranks' blocks in rank order over
+//     distributed shared memory for its slice of the candidates and writes
+//     that slice of the (12, kc) gradient once: no global atomics, the
+//     result is deterministic. 104 KB of shared memory at kc 512 (two CTAs
+//     an SM; a T buffer for a whole 128-candidate block, 128 KB, would leave
+//     one). A global scratch of per-fine-tile partials summed by a second
+//     pass would be as deterministic, but costs n_ct cs^2 10 kc 4 bytes,
+//     335 MB at the recon step, written and read once more.
 //   dalpha = dw T_k - (S + g_T T_final) / (1 - alpha); the gradient passes
 //   through alpha only where live, hit and raw <= 0.99.
 // The alpha evaluation and the reverse walk's gradient terms are shared with
@@ -45,24 +63,27 @@
 // (fields read once, planes written once); the f32 arithmetic per evaluated
 // (pixel, candidate) pair stays under it. Both kernels run well above that
 // bound (PERF.md): each thread's walk over the candidates is sequential,
-// and the backward reduces 10 sums over 4,096 pixels per candidate in one
-// CTA per coarse tile. Not yet: splitting the backward's fine-tile loop
-// over CTAs (with a second deterministic pass), warp-level early exit,
-// tensor-core sums.
+// and the backward evaluates each listed pair three times and spends 50
+// shuffles a warp on every listed candidate. Not yet: the hit list in the
+// forward, warp-level early exit, tensor-core sums.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "composite_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using namespace composite;
 
 constexpr int MAX_KC = 512;
-constexpr int MAX_BLOCKS = MAX_KC / KB;
 constexpr float T_STOP = 1e-4f;
+constexpr int SB = 32;           // candidates per recomputed sub-block of the backward
+constexpr int MAX_CLUSTER = 16;  // CTAs (fine tiles) of one coarse tile's cluster
 
 // f: the coarse tile's fields in shared memory, row stride kc.
 __device__ __forceinline__ bool tile_hit(const float* f, int kc, int k, float tx0,
@@ -128,53 +149,84 @@ __global__ void __launch_bounds__(PX)
   o[7 * PX] = 0.f;
 }
 
-__global__ void __launch_bounds__(PX)
+// A cluster of Q CTAs (ranks) a coarse tile: rank r walks fine tiles r,
+// r + Q, ... and sums their gradient terms into its own shared-memory block
+// `part`; then each rank adds the Q blocks in rank order over distributed
+// shared memory for its slice of the candidates and writes that slice of
+// the (12, kc) gradient once.
+__global__ void __launch_bounds__(PX, 2)
     composite_coarse_bwd_kernel(const float* __restrict__ corig,
                                 const float* __restrict__ fields,
                                 const float* __restrict__ cot, float* __restrict__ grad,
                                 int kc, int cs, float alpha_min, float alpha_max) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int Q = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   extern __shared__ float smem[];
-  float* f = smem;                       // NFIELD * kc
-  float* gacc = f + NFIELD * kc;         // NGRAD * kc, summed over fine tiles
-  float* tk = gacc + NGRAD * kc;         // KB * PX: T before each candidate
-  float* red = tk + KB * PX;             // WARPS * NGRAD * KB
-  int* hit = reinterpret_cast<int*>(red + WARPS * NGRAD * KB);  // kc
+  const int nsb = (kc + SB - 1) / SB;   // sub-blocks of a fine tile's hit list, at most
+  const int ngrp = (kc + 31) / 32;      // 32-candidate groups
+  float* f = smem;                      // NFIELD * kc
+  float* part = f + NFIELD * kc;        // NGRAD * kc: this rank's fine tiles' sums
+  float* tsb = part + NGRAD * kc;       // nsb * PX: T at each sub-block's start
+  float* tk = tsb + nsb * PX;           // SB * PX: T before each candidate of one sub-block
+  float* red = tk + SB * PX;            // WARPS * NGRAD * SB
+  int* hl = reinterpret_cast<int*>(red + WARPS * NGRAD * SB);  // kc: the tile's hit list
+  unsigned* gbal = reinterpret_cast<unsigned*>(hl + kc);       // ngrp: hit bits a group
+  int* gpre = reinterpret_cast<int*>(gbal + ngrp);             // ngrp + 1: hits before it
   const int tiles = cs * cs;
-  const int ci = blockIdx.x;
+  const int ci = blockIdx.x / Q;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* src = fields + (size_t)ci * NFIELD * kc;
   for (int i = tid; i < NFIELD * kc; i += PX) f[i] = src[i];
-  for (int i = tid; i < NGRAD * kc; i += PX) gacc[i] = 0.f;
+  for (int i = tid; i < NGRAD * kc; i += PX) part[i] = 0.f;
   const int kb = kc < KB ? kc : KB;
   const int nblocks = kc / kb;
+  // hits of the list before block b's first candidate
+  auto hits_before = [&](int b) { return gpre[min(ngrp, (b * kb + 31) / 32)]; };
 
-  for (int local = 0; local < tiles; ++local) {
+  for (int local = rank; local < tiles; local += Q) {
     const float tx0 = corig[2 * ci] + (float)(local % cs) * TILE;
     const float ty0 = corig[2 * ci + 1] + (float)(local / cs) * TILE;
     const float gx = (float)(tid % TILE) + tx0, gy = (float)(tid / TILE) + ty0;
-    __syncthreads();  // fields loaded / previous tile's hit flags consumed
-    mark_hits(f, kc, tx0, ty0, hit);
+    __syncthreads();  // fields loaded / the previous tile's list consumed
+
+    // the hit list: the candidates whose AABB meets the fine tile, front to
+    // back, so that the walks below skip the others for free
+    for (int k0 = 0; k0 < kc; k0 += PX) {
+      const int k = k0 + tid;
+      const unsigned bal = __ballot_sync(0xffffffffu, k < kc && tile_hit(f, kc, k, tx0, ty0));
+      if (lane == 0 && k < kc) gbal[k >> 5] = bal;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int n = 0;
+      for (int g = 0; g < ngrp; ++g) {
+        gpre[g] = n;
+        n += __popc(gbal[g]);
+      }
+      gpre[ngrp] = n;
+    }
+    __syncthreads();
+    for (int k = tid; k < kc; k += PX) {
+      const unsigned bal = gbal[k >> 5];
+      if ((bal >> (k & 31)) & 1u) hl[gpre[k >> 5] + __popc(bal & ((1u << (k & 31)) - 1u))] = k;
+    }
     __syncthreads();
 
-    // pass 1: forward, keeping T at each block's start
-    float tstart[MAX_BLOCKS];
-    bool done[MAX_BLOCKS];
+    // pass 1: forward, keeping T at each sub-block's start; a block runs
+    // where a candidate of it hits the tile and some pixel's T > 1e-4
+    unsigned ran = 0;
+    int sbi = 0;  // sub-blocks so far
     float T = 1.f;
-#pragma unroll
-    for (int b = 0; b < MAX_BLOCKS; ++b) {
-      tstart[b] = T;
-      done[b] = false;
-      if (b < nblocks) {
-        const int b0 = b * kb;
-        const int any_hit = __syncthreads_or(tid < kb && hit[b0 + tid]);
-        const int any_t = __syncthreads_or(T > T_STOP);
-        done[b] = any_hit && any_t;
-        if (done[b]) {
-          for (int k = b0; k < b0 + kb; ++k) {
-            if (!hit[k]) continue;
-            const Alpha a = cand_alpha(f, kc, k, gx, gy, alpha_min, alpha_max);
-            if (a.alpha > 0.f) T *= 1.f - a.alpha;
-          }
+    for (int b = 0; b < nblocks; ++b) {
+      const int lo = hits_before(b), hi = hits_before(b + 1);
+      if (hi == lo || !__syncthreads_or(T > T_STOP)) continue;  // uniform over the CTA
+      ran |= 1u << b;
+      for (int j0 = lo; j0 < hi; j0 += SB, ++sbi) {
+        tsb[sbi * PX + tid] = T;
+        const int j1 = min(hi, j0 + SB);
+        for (int j = j0; j < j1; ++j) {
+          const Alpha a = cand_alpha(f, kc, hl[j], gx, gy, alpha_min, alpha_max);
+          if (a.alpha > 0.f) T *= 1.f - a.alpha;
         }
       }
     }
@@ -182,52 +234,67 @@ __global__ void __launch_bounds__(PX)
     // r, g, b, alpha, depth and g_T * T_final
     const float gv[6] = {g[0], g[PX], g[2 * PX], g[3 * PX], g[4 * PX], g[5 * PX] * T};
 
-    // pass 2: blocks back to front
+    // pass 2: the blocks that ran, back to front, a sub-block at a time
     float S = 0.f;
-#pragma unroll
-    for (int b = MAX_BLOCKS - 1; b >= 0; --b) {
-      if (b >= nblocks || !done[b]) continue;  // uniform
-      const int b0 = b * kb;
-      float t = tstart[b];
-      for (int k = b0; k < b0 + kb; ++k) {  // T before each candidate
-        tk[(k - b0) * PX + tid] = t;
-        if (!hit[k]) continue;
-        const Alpha a = cand_alpha(f, kc, k, gx, gy, alpha_min, alpha_max);
-        if (a.alpha > 0.f) t *= 1.f - a.alpha;
-      }
-      for (int k = b0 + kb - 1; k >= b0; --k) {
-        float c[NGRAD];
-        const bool live = cand_grads(hit[k], f, kc, k, gx, gy, alpha_min, alpha_max,
-                                     tk[(k - b0) * PX + tid], gv, S, c);
-        warp_sum(c, live);
-        if (lane == 0) {
-#pragma unroll
-          for (int r = 0; r < NGRAD; ++r) red[(warp * NGRAD + r) * KB + (k - b0)] = c[r];
+    for (int b = nblocks - 1; b >= 0; --b) {
+      if (!((ran >> b) & 1u)) continue;  // uniform
+      const int lo = hits_before(b), hi = hits_before(b + 1);
+      const int ns = (hi - lo + SB - 1) / SB;
+      sbi -= ns;
+      for (int s = ns - 1; s >= 0; --s) {
+        const int j0 = lo + s * SB, n = min(SB, hi - j0);
+        float t = tsb[(sbi + s) * PX + tid];
+        for (int q = 0; q < n; ++q) {
+          tk[q * PX + tid] = t;
+          const Alpha a = cand_alpha(f, kc, hl[j0 + q], gx, gy, alpha_min, alpha_max);
+          if (a.alpha > 0.f) t *= 1.f - a.alpha;
         }
-      }
-      __syncthreads();
-      for (int i = tid; i < NGRAD * kb; i += PX) {
-        const int r = i / kb, kk = i % kb;
-        float s = 0.f;
+        for (int q = n - 1; q >= 0; --q) {
+          float c[NGRAD];
+          const bool live = cand_grads(true, f, kc, hl[j0 + q], gx, gy, alpha_min, alpha_max,
+                                       tk[q * PX + tid], gv, S, c);
+          warp_sum(c, live);
+          if (lane == 0) {
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[(w * NGRAD + r) * KB + kk];
-        gacc[r * kc + b0 + kk] += s;
+            for (int r = 0; r < NGRAD; ++r) red[(warp * NGRAD + r) * SB + q] = c[r];
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < NGRAD * n; i += PX) {
+          const int r = i / n, q = i % n;
+          float sum = 0.f;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) sum += red[(w * NGRAD + r) * SB + q];
+          part[r * kc + hl[j0 + q]] += sum;
+        }
+        __syncthreads();  // red and tk are reused by the next sub-block
       }
-      __syncthreads();
     }
   }
-  __syncthreads();
+
+  // the cluster's sum, rank by rank in order, one slice of candidates a rank
+  cluster.sync();
+  const int slice = (kc + Q - 1) / Q;
+  const int lo = min(kc, rank * slice), len = min(kc, lo + slice) - lo;
   float* dst = grad + (size_t)ci * NFIELD * kc;
-  for (int i = tid; i < NGRAD * kc; i += PX) dst[i] = gacc[i];
-  for (int i = tid; i < (NFIELD - NGRAD) * kc; i += PX) dst[NGRAD * kc + i] = 0.f;
+  for (int i = tid; i < NGRAD * len; i += PX) {
+    const int r = i / len, k = lo + i % len;
+    float sum = 0.f;
+    for (int q = 0; q < Q; ++q) sum += cluster.map_shared_rank(part, q)[r * kc + k];
+    dst[r * kc + k] = sum;
+  }
+  for (int i = tid; i < (NFIELD - NGRAD) * len; i += PX)
+    dst[(NGRAD + i / len) * kc + lo + i % len] = 0.f;
+  cluster.sync();  // no rank leaves while another reads its block
 }
 
 size_t fwd_smem(int kc) { return (size_t)NFIELD * kc * sizeof(float) + kc * sizeof(int); }
 
 size_t bwd_smem(int kc) {
-  return ((size_t)(NFIELD + NGRAD) * kc + (size_t)KB * PX + (size_t)WARPS * NGRAD * KB) *
+  const size_t nsb = (kc + SB - 1) / SB, ngrp = (kc + 31) / 32;
+  return ((size_t)(NFIELD + NGRAD) * kc + (nsb + SB) * PX + (size_t)WARPS * NGRAD * SB) *
              sizeof(float) +
-         kc * sizeof(int);
+         (kc + 2 * ngrp + 1) * sizeof(int);
 }
 
 int check_shape(int n_ct, int kc, int cs) {
@@ -257,21 +324,38 @@ extern "C" int composite_coarse_fwd(const void* corig, const void* fields, void*
 }
 
 // grad (n_ct, 12, kc): rows 0-9 the field gradients, rows 10-11 zero, from the
-// forward's inputs and the planes' cotangent cot (n_ct, cs*cs, 8, 256).
+// forward's inputs and the planes' cotangent cot (n_ct, cs*cs, 8, 256); a
+// cluster of `ranks` CTAs (1 to min(cs*cs, 16)) per coarse tile.
 extern "C" int composite_coarse_bwd(const void* corig, const void* fields, const void* cot,
-                                    void* grad, int n_ct, int kc, int cs, float alpha_min,
-                                    float alpha_max, void* stream) {
+                                    void* grad, int n_ct, int kc, int cs, int ranks,
+                                    float alpha_min, float alpha_max, void* stream) {
   int bad = check_shape(n_ct, kc, cs);
   if (bad) return bad;
+  if (ranks < 1 || ranks > MAX_CLUSTER || ranks > cs * cs) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(kc);
   cudaError_t err = cudaFuncSetAttribute(composite_coarse_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(composite_coarse_bwd_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  composite_coarse_bwd_kernel<<<n_ct, PX, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(corig), static_cast<const float*>(fields),
-      static_cast<const float*>(cot), static_cast<float*>(grad), kc, cs, alpha_min,
-      alpha_max);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_ct * ranks);
+  cfg.blockDim = dim3(PX);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, composite_coarse_bwd_kernel, static_cast<const float*>(corig),
+                           static_cast<const float*>(fields), static_cast<const float*>(cot),
+                           static_cast<float*>(grad), kc, cs, alpha_min, alpha_max);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

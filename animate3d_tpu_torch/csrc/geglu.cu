@@ -1,4 +1,5 @@
-// GEGLU feed-forward for Hopper (sm_90a), bf16 in/out, f32 accumulation.
+// GEGLU feed-forward (kernel C) for Hopper (sm_90a), bf16 in/out, f32
+// accumulation.
 //
 // Replaces: animate3d_tpu/ops/geglu.py::_geglu_kernel (via _geglu_pallas /
 // geglu_ff), the diffusers GEGLU feed-forward of every spatial transformer
@@ -6,221 +7,242 @@
 //   y = ((x W1h^T + b1h) * gelu(x W1g^T + b1g)) W2^T + b2
 // with W1 = [W1h; W1g] (2I, C) and W2 (C, I) in torch Linear layout.
 //
-// Two launches of one hand-written bf16 tensor-core GEMM with two
+// Two launches of one persistent, warp-specialised GEMM with two
 // epilogues:
-//   (1) GATED: one CTA tile computes BOTH x W1h^T and x W1g^T for the same
-//       rows and columns and writes h = (. + b1h) * gelu_erf(. + b1g) as
-//       bf16, with CUDA's exact erff (the TPU kernel used the A&S 7.1.26
-//       rational erf because Mosaic has no erf lowering);
-//   (2) plain: y = h W2^T + b2.
-// The (M, I) hidden makes one bf16 round trip through device memory; the
-// TPU kernel keeps it on chip, which is a later redesign here.
+//   (1) GATED: hidden (M, I) = (x W1h^T + b1h) * gelu_erf(x W1g^T + b1g),
+//       rounded once to bf16, with CUDA's exact erff (the TPU kernel used
+//       the A&S 7.1.26 rational erf because Mosaic has no erf lowering);
+//   (2) plain: y = hidden W2^T + b2, b2 added in f32.
+// The (M, I) bf16 hidden makes one round trip through device memory (2 x
+// 335 MB at the sampling L0 shape, 0.2 ms at 3.35 TB/s, overlapped with
+// the tensor-core work of each launch). The TPU kernel keeps it on chip.
+// Here a consumer's f32 output accumulator of 64 rows x C takes C / 2
+// registers a thread, so one launch that keeps the hidden in registers
+// fits at C = 320 only, with its gated products at m64n64; that variant
+// measured slower than these two launches at every C = 320 shape of the
+// paths (PERF.md), so it is not kept.
 //
-// Bound on the H100: the tensor cores (6*M*C*I flops against ~2*M*(C+I)
-// bytes: ~300-2500 flops per byte at the main-path widths). Design: a CTA
-// of 8 warps computes a 128 x 128 block of products (GATED: 128 rows x 64
-// hidden columns for each of the two halves), K in steps of 32 through a
-// 3-stage cp.async ring in shared memory; m16n8k16 mma.sync with operands
-// fetched by ldmatrix from conflict-free padded rows; the epilogue runs on
-// the accumulator registers. Not yet: wgmma, TMA, a persistent schedule.
+// Bound on the H100: the tensor cores (6 M C I flops against about 2 M (C +
+// I) bytes: 300-2500 flops a byte at the main-path widths, above the card's
+// 295). Design (hopper-kernels §1): one CTA an SM walks output tiles
+// blockIdx.x, + gridDim.x, ... (persistent). Its producer warp keeps TMA
+// loads of (64-deep) x and W boxes in flight through a ring of shared-memory
+// stages under full / empty mbarriers; operands are K-major under the
+// 128-byte swizzle. Two consumer warpgroups (setmaxnreg 232; the producer
+// keeps 40) take alternate tiles of 128 rows and BN product columns, each
+// with two m64nBNk16 wgmmas a k-step; a pair of named barriers orders their
+// turns at the tensor cores (ping-pong), so one consumer's epilogue runs
+// while the other's products do. In the GATED launch a stage holds the x box
+// and two W1 boxes, hidden rows n0 .. n0 + BN/2 and gate rows I + n0 ..,
+// so the hidden and gate products of one output element land in the same
+// thread's accumulator registers (product columns c and c + BN/2): bias,
+// gate and rounding run in registers. The epilogue stages each 64-row half
+// in a padded shared-memory buffer and writes it with 16-byte stores. A
+// ragged M or N reads TMA's zero fill and skips the stores past the end.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "hopper_common.cuh"
+#include "wgmma_ops.cuh"
 
 namespace {
 
-constexpr int BM = 128, BK = 32, STAGES = 3;
-constexpr int LDS = BK + 8;  // padded smem row (elements): conflict-free ldmatrix
-constexpr int WARPS = 8;     // 4 (rows) x 2 (cols)
-constexpr int THREADS = WARPS * 32;
-constexpr int WN = 8;        // 8-wide n-tiles per warp: 64 columns of products
+typedef __nv_bfloat16 bf16;
 
-template <bool GATED>
+constexpr int BM = 128;  // rows of a consumer's tile: two m64 wgmmas
+constexpr int BK = 64;   // depth of a stage: one 128-byte swizzle row
+constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// GATED: BN product columns = BN / 2 hidden + BN / 2 gate; else BN outputs
+template <bool GATED, int BN>
 struct Cfg {
-  static constexpr int BN = GATED ? 64 : 128;  // output columns per CTA
-  static constexpr int STAGE = (BM + 128) * LDS;  // A tile + 128 rows of W
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE * sizeof(bf16);
+  static constexpr int STAGES = GATED ? 5 : 4;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BYTES = BN * 128;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int ON = GATED ? BN / 2 : BN;  // output columns of a tile
+  static constexpr int EPI_LD = ON + 8;  // padded bf16 row: conflict-free fragment writes
+  static constexpr int EPI_BYTES = 64 * EPI_LD * 2;  // one 64-row half
+  static constexpr int EPI_OFF = STAGES * STAGE;
+  static constexpr int BAR_OFF = EPI_OFF + 2 * EPI_BYTES;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float gelu_erf(float g) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
 }
 
-// out[M, N] = epilogue(A[M, K] W[., K]^T). Smem W rows of one stage: the
-// CTA's BN product columns (GATED: rows n0.. of W then rows gate_off + n0..,
-// 64 each). K % BK == 0 and N % 64 == 0 (checked by the caller).
-template <bool GATED>
-__global__ void __launch_bounds__(THREADS)
-geglu_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                  const bf16* __restrict__ bias, bf16* __restrict__ out, int M,
-                  int N, int K, long long lda, long long ldw, long long ldo,
-                  int gate_off) {
-  constexpr int BN = Cfg<GATED>::BN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* base = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = K / BK;
-
-  auto load_stage = [&](int s, int kt) {
-    bf16* sA = base + s * Cfg<GATED>::STAGE;
-    bf16* sW = sA + BM * LDS;
-    const int k0 = kt * BK;
+// One 64-row half of a consumer's tile (acc: the m64 accumulator of rows
+// row0 .. row0 + 63): bias, gate and bf16 rounding in registers, the bf16
+// pairs into the consumer's buffer, then 16-byte stores of whole rows.
+template <bool GATED, int BN>
+__device__ __forceinline__ void store_half(const float (&acc)[BN / 2], bf16* buf, int bar,
+                                           int tid, const bf16* __restrict__ bias,
+                                           const bf16* __restrict__ gbias,
+                                           bf16* __restrict__ out, int row0, int n0, int M,
+                                           int N) {
+  using C = Cfg<GATED, BN>;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int lr = warp * 16 + (lane >> 2);  // rows lr and lr + 8 of the half
+  hop::bar_sync(bar, 128);  // the buffer's previous half is stored
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {  // 128 rows x 4 chunks of A, and of W
-      const int i = threadIdx.x + u * THREADS, row = i >> 2, c = i & 3;
-      const bool ok = m0 + row < M;
-      cp_async16(sA + row * LDS + c * 8,
-                 ok ? A + (long long)(m0 + row) * lda + k0 + c * 8 : A, ok);
-      const int wrow = GATED ? (row < 64 ? n0 + row : gate_off + n0 + row - 64) : n0 + row;
-      const bool wok = GATED || wrow < N;  // plain: the last column block may be half empty
-      cp_async16(sW + row * LDS + c * 8, wok ? W + (long long)wrow * ldw + k0 + c * 8 : W, wok);
+  for (int i = 0; i < C::ON / 8; ++i) {
+    const int col = i * 8 + 2 * t;
+    float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+    if (n0 + col < N) {
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + col));
+      if (GATED) {
+        constexpr int G = 4 * (C::ON / 8);  // the gate's n-tiles follow the hidden's
+        const float2 gb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gbias + n0 + col));
+        v0 = (acc[4 * i] + b.x) * gelu_erf(acc[G + 4 * i] + gb.x);
+        v1 = (acc[4 * i + 1] + b.y) * gelu_erf(acc[G + 4 * i + 1] + gb.y);
+        v2 = (acc[4 * i + 2] + b.x) * gelu_erf(acc[G + 4 * i + 2] + gb.x);
+        v3 = (acc[4 * i + 3] + b.y) * gelu_erf(acc[G + 4 * i + 3] + gb.y);
+      } else {
+        v0 = acc[4 * i] + b.x;
+        v1 = acc[4 * i + 1] + b.y;
+        v2 = acc[4 * i + 2] + b.x;
+        v3 = acc[4 * i + 3] + b.y;
+      }
     }
-  };
-
-  float acc[2][WN][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < WN; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    asm volatile("cp.async.commit_group;\n" ::);
+    *reinterpret_cast<__nv_bfloat162*>(buf + lr * C::EPI_LD + col) = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(buf + (lr + 8) * C::EPI_LD + col) =
+        __floats2bfloat162_rn(v2, v3);
   }
-
-  // warp (wm, wn): rows wm*32..+32; W rows (product columns) wn*64..+64
-  // (GATED: wn = 0 is the hidden half, wn = 1 the gate half)
-  for (int kt = 0; kt < KT; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();
-    if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-
-    const bf16* sA = base + (kt % STAGES) * Cfg<GATED>::STAGE;
-    const bf16* sW = sA + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(af[i], sA + (wm * 32 + i * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int jp = 0; jp < WN / 2; ++jp) {
-        unsigned bf[4];
-        const int mi = lane >> 3;
-        ldmatrix_x4(bf, sW + (wn * 64 + jp * 16 + (mi >> 1) * 8 + (lane & 7)) * LDS + kk * 16 +
-                            (mi & 1) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-          mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-
-  if (GATED) {
-    // the hidden and gate products of one output element sit in warps wn = 0
-    // and wn = 1 with the same lane and register: pass the gate through smem
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    float* xg = reinterpret_cast<float*>(smem);  // [4 wm][2 i][8 j][32 lanes][4]
-    float* mine = xg + wm * (2 * WN * 32 * 4) + lane * 4;
-    if (wn == 1) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mine[((i * WN + j) * 32) * 4 + e] = acc[i][j][e];
-    }
-    __syncthreads();
-    if (wn == 1) return;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const int col = n0 + j * 8 + 2 * t;
-        const float bh0 = __bfloat162float(bias[col]), bh1 = __bfloat162float(bias[col + 1]);
-        const float bg0 = __bfloat162float(bias[gate_off + col]);
-        const float bg1 = __bfloat162float(bias[gate_off + col + 1]);
-        const float* gv = mine + ((i * WN + j) * 32) * 4;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = m0 + wm * 32 + i * 16 + g + half * 8;
-          if (row >= M) continue;
-          const float v0 = (acc[i][j][2 * half] + bh0) * gelu_erf(gv[2 * half] + bg0);
-          const float v1 = (acc[i][j][2 * half + 1] + bh1) * gelu_erf(gv[2 * half + 1] + bg1);
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * ldo + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const int col = n0 + wn * 64 + j * 8 + 2 * t;
-        if (col >= N) continue;
-        const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = m0 + wm * 32 + i * 16 + g + half * 8;
-          if (row >= M) continue;
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * ldo + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * half] + b0, acc[i][j][2 * half + 1] + b1);
-        }
-      }
+  hop::bar_sync(bar, 128);
+  constexpr int CH = C::ON / 8;  // 16-byte chunks of a row
+  for (int q = tid; q < 64 * CH; q += 128) {
+    const int r = q / CH, cc = q % CH;
+    const int row = row0 + r, col = n0 + cc * 8;
+    if (row < M && col < N)
+      *reinterpret_cast<uint4*>(out + (long long)row * N + col) =
+          *reinterpret_cast<const uint4*>(buf + r * C::EPI_LD + cc * 8);
   }
 }
 
-template <bool GATED>
-int launch(const void* a, const void* w, const void* bias, void* out, int M,
-           int N, int K, long long lda, long long ldw, long long ldo,
-           int gate_off, cudaStream_t stream) {
-  if (K % BK != 0 || N % 64 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = Cfg<GATED>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(geglu_gemm_kernel<GATED>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// out (M, N) = epilogue(A (M, K) W (N, K)^T), A and W row-major bf16 read
+// through the tensor maps ta / tb (GATED: tb the hidden half of W1, tg its
+// gate half, each N rows). K % 64 == 0, N % 64 == 0.
+template <bool GATED, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+geglu_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tg, const bf16* __restrict__ bias,
+                  const bf16* __restrict__ gbias, bf16* __restrict__ out, int M, int N, int K) {
+  using C = Cfg<GATED, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::smem_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* empty = full + C::STAGES;
+  const int ntn = (N + C::ON - 1) / C::ON;
+  const int tiles = ((M + BM - 1) / BM) * ntn;
+  const int KT = K / BK;
+  const int wg = threadIdx.x / 128;
+  const int ntl = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;  // my tiles
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 128);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread streams every tile's k-blocks through the ring,
+    // in the order the consumers take them (tile j to consumer j % 2)
+    hop::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int seq = 0;
+      for (int j = 0; j < ntl; ++j) {
+        const int tile = blockIdx.x + j * gridDim.x;
+        const int m0 = (tile / ntn) * BM, n0 = (tile % ntn) * C::ON;
+        for (int kb = 0; kb < KT; ++kb, ++seq) {
+          const int s = seq % C::STAGES;
+          hop::mbar_wait(&empty[s], ((seq / C::STAGES) & 1) ^ 1);
+          unsigned char* st = smem + s * C::STAGE;
+          hop::mbar_arrive_tx(&full[s], C::STAGE);
+          hop::tma_load_2d(st, &ta, &full[s], kb * BK, m0);
+          hop::tma_load_2d(st + C::A_BYTES, &tb, &full[s], kb * BK, n0);
+          if (GATED)
+            hop::tma_load_2d(st + C::A_BYTES + C::B_BYTES / 2, &tg, &full[s], kb * BK, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  hop::reg_alloc<CONSUMER_REGS>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  bf16* buf = reinterpret_cast<bf16*>(smem + C::EPI_OFF + c * C::EPI_BYTES);
+  float acc0[BN / 2], acc1[BN / 2];
+
+  // turn j at the tensor cores belongs to consumer j % 2: it waits at
+  // barrier 1 + c and, once its products are issued, opens the next turn.
+  // The order also keeps the ring's parity waits sound: a consumer waits on
+  // a stage only after the stage's previous load has landed (without the
+  // turns, the second consumer can pass a full barrier one phase early).
+  if (c == 1) hop::bar_arrive(1, 256);
+  for (int j = c; j < ntl; j += 2) {
+    const int tile = blockIdx.x + j * gridDim.x;
+    const int m0 = (tile / ntn) * BM, n0 = (tile % ntn) * C::ON;
+    int seq = j * KT;
+    hop::bar_sync(1 + c, 256);
+    for (int kb = 0; kb < KT; ++kb, ++seq) {
+      const int s = seq % C::STAGES;
+      hop::mbar_wait(&full[s], (seq / C::STAGES) & 1);
+      const unsigned char* st = smem + s * C::STAGE;
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = hop::sw128_desc(st + C::A_BYTES + kk * 32);
+        Wgmma<BN>::template ss<0, 0>(acc0, hop::sw128_desc(st + kk * 32), db, kb | kk);
+        Wgmma<BN>::template ss<0, 0>(acc1, hop::sw128_desc(st + 64 * 128 + kk * 32), db,
+                                     kb | kk);
+      }
+      hop::wg_commit();
+      if (kb > 0) {  // the previous stage's products are done: free it
+        hop::wg_wait<1>();
+        hop::mbar_arrive(&empty[(seq - 1) % C::STAGES]);
+      }
+    }
+    if (j + 1 < ntl) hop::bar_arrive(2 - c, 256);
+    hop::wg_wait<0>();
+    hop::fence_regs(acc0);
+    hop::fence_regs(acc1);
+    hop::mbar_arrive(&empty[(seq - 1) % C::STAGES]);
+    store_half<GATED, BN>(acc0, buf, 3 + c, tid, bias, gbias, out, m0, n0, M, N);
+    store_half<GATED, BN>(acc1, buf, 3 + c, tid, bias, gbias, out, m0 + 64, n0, M, N);
+  }
+}
+
+
+template <bool GATED, int BN>
+int launch(const void* a, const void* w, const void* wgate, const void* bias,
+           const void* gbias, void* out, int M, int N, int K, cudaStream_t stream) {
+  using C = Cfg<GATED, BN>;
+  if (M < 1 || K % BK != 0 || N % 64 != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb, tg;
+  const int wrows = GATED ? BN / 2 : BN;
+  if (!hop::matrix_map(&ta, a, M, K, BM) || !hop::matrix_map(&tb, w, N, K, wrows) ||
+      !hop::matrix_map(&tg, GATED ? wgate : w, N, K, wrows))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(geglu_gemm_kernel<GATED, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + Cfg<GATED>::BN - 1) / Cfg<GATED>::BN, (M + BM - 1) / BM);
-  geglu_gemm_kernel<GATED><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, lda,
-      ldw, ldo, gate_off);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + C::ON - 1) / C::ON);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  geglu_gemm_kernel<GATED, BN><<<grid, THREADS, C::SMEM, stream>>>(
+      ta, tb, tg, static_cast<const bf16*>(bias), static_cast<const bf16*>(gbias),
+      static_cast<bf16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -228,20 +250,25 @@ int launch(const void* a, const void* w, const void* bias, void* out, int M,
 
 // hidden (M, I) = (x W1[:I]^T + b1[:I]) * gelu(x W1[I:]^T + b1[I:]);
 // x (M, C), W1 (2I, C), b1 (2I,), all bf16 and row-contiguous;
-// C % 32 == 0, I % 64 == 0.
-extern "C" int geglu_hidden(const void* x, const void* w1, const void* b1,
-                            void* hidden, int M, int C, int I, void* stream) {
-  return launch<true>(x, w1, b1, hidden, M, I, C, C, C, I, I,
-                      static_cast<cudaStream_t>(stream));
+// C % 64 == 0, I % 64 == 0.
+extern "C" int geglu_hidden(const void* x, const void* w1, const void* b1, void* hidden, int M,
+                            int C, int I, void* stream) {
+  const bf16* w = static_cast<const bf16*>(w1);
+  const bf16* b = static_cast<const bf16*>(b1);
+  return launch<true, 128>(x, w, w + (long long)I * C, b, b + I, hidden, M, I, C,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // y (M, C) = hidden W2^T + b2; hidden (M, I), W2 (C, I), b2 (C,);
-// C % 64 == 0, I % 32 == 0.
-extern "C" int geglu_out(const void* hidden, const void* w2, const void* b2,
-                         void* y, int M, int C, int I, void* stream) {
-  return launch<false>(hidden, w2, b2, y, M, C, I, I, I, C, 0,
-                       static_cast<cudaStream_t>(stream));
+// C % 64 == 0, I % 64 == 0. Tiles of 160 columns where they divide C (the
+// SD1.5 widths 320, 640, 1280), else of 128.
+extern "C" int geglu_out(const void* hidden, const void* w2, const void* b2, void* y, int M,
+                         int C, int I, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C % 160 == 0) return launch<false, 160>(hidden, w2, w2, b2, b2, y, M, C, I, s);
+  return launch<false, 128>(hidden, w2, w2, b2, b2, y, M, C, I, s);
 }
+
 
 extern "C" const char* geglu_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,9 +1,14 @@
-// Hopper (sm_90a) building blocks of the warp-specialised attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA tile loads, wgmma fences and
-// matrix descriptors, named barriers, register reallocation, and the host
-// side's tensor maps over the merged-head (B, S, H*D) layout.
+// Hopper (sm_90a) building blocks of the warp-specialised kernels
+// (flash_fwd.cu, flash_bwd.cu, geglu.cu): mbarriers, TMA tile loads, wgmma
+// fences and matrix descriptors, named barriers, register reallocation, and
+// the host side's tensor maps: over the merged-head (B, S, H*D) layout of
+// the attention kernels, and over row-major 2-D matrices for the GEMMs.
 //
-// Shared-memory tiles use the 32-byte swizzle throughout: a tile of `rows`
+// The attention kernels' tiles use the 32-byte swizzle (head widths 40, 80
+// and 160 are no multiple of 64 columns); the GEMM's operands, whose depth
+// is a multiple of 64, use the 128-byte swizzle (below).
+//
+// The attention kernels' shared-memory tiles: a tile of `rows`
 // rows and DP (a multiple of 16) head columns is stored as DP / 16 column
 // chunks, each `rows` x 32 bytes (16 bf16 a row), as TMA writes a
 // (16, 1, rows, 1) box of the 4-D map (D, H, S, B) under
@@ -79,6 +84,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one (64, rows) box of a 2-D row-major map at (column, row): `rows` rows of
+// 64 bf16 (128 bytes) under the 128-byte swizzle (16-byte chunk c of row r
+// stored at chunk c ^ (r % 8)); rows past the map's end read as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // generic-proxy shared-memory writes made visible to wgmma / TMA reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -116,6 +133,16 @@ __device__ __forceinline__ uint64_t sw32_desc(const void* p, unsigned lead, unsi
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32) | (3ull << 62);
+}
+
+// matrix descriptor of a K-major operand under the 128-byte swizzle at `p`
+// (a 1024-byte aligned box of tma_load_2d, plus 32 bytes for each k-step of
+// 16 columns into it): 8-row groups 1024 bytes apart, the leading offset
+// unused (the 16-column depth of one wgmma lies inside one 128-byte row)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // byte offset of element (row, col) of a 32-byte-swizzled chunked tile of
@@ -204,6 +231,23 @@ inline bool head_map(CUtensorMap* map, const void* base, int B, int S, int H, in
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// the 2-D map of a row-major bf16 matrix (rows, cols) with unit column
+// stride, read in (64, box_rows) boxes under the 128-byte swizzle; cols %
+// 64 == 0 and the base 16-byte aligned; rows past `rows` read as zeros
+inline bool matrix_map(CUtensorMap* map, const void* base, long long rows, int cols,
+                       int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
 

@@ -1,5 +1,10 @@
 """GEGLU feed-forward: CUDA kernel C (``csrc/geglu.cu``) + plain torch path.
 
+Kernel C is two launches of one persistent, warp-specialised TMA + wgmma
+GEMM for Hopper: the gated launch writes the (M, I) bf16 hidden, the second
+adds b2. It takes any M >= 1 and C, I that are multiples of 64
+(:func:`check_kernel_shape`); it raises elsewhere.
+
 Port of ``animate3d_tpu/ops/geglu.py``. Weights are in torch Linear layout:
 ``w1`` (2I, C) whose first I rows are the hidden half and last I rows the
 gate half, ``w2`` (C, I). ``y = ((x w1h^T + b1h) * gelu(x w1g^T + b1g))
@@ -57,11 +62,18 @@ def _geglu_fns():
     return fns
 
 
+def check_kernel_shape(channels: int, inner: int) -> None:
+    """Raise unless kernel C takes (C, I): both multiples of 64, the depth of
+    one 128-byte swizzled TMA box and the width of its output tiles' 16-byte
+    stores."""
+    if channels % 64 or inner % 64 or channels <= 0 or inner <= 0:
+        raise ValueError(f"geglu: C={channels} and I={inner} must be positive multiples of 64")
+
+
 def geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
           w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Kernel C on x (M, C): two launches of one bf16 tensor-core GEMM, the
-    first with the gated epilogue writing the (M, I) bf16 hidden, the second
-    adding b2. CPU tensors take the plain version."""
+    """Kernel C on x (M, C): the gated launch writes the (M, I) bf16 hidden,
+    the second adds b2. CPU tensors take the plain version."""
     m, c = x.shape
     inner = w2.shape[1]
     if w1.shape != (2 * inner, c) or b1.shape != (2 * inner,) or \
@@ -74,8 +86,7 @@ def geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"geglu {name}: need contiguous bfloat16 on "
                              f"{x.device}, got {t.dtype} on {t.device}")
-    if c % 64 or inner % 64:
-        raise ValueError(f"geglu: C={c} and I={inner} must be multiples of 64")
+    check_kernel_shape(c, inner)
     hidden = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     y = torch.empty((m, c), dtype=x.dtype, device=x.device)
     stream = _build.stream_ptr(x.device)

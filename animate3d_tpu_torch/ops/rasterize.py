@@ -407,7 +407,7 @@ def _h_fns():
     fwd, bwd = lib.composite_coarse_fwd, lib.composite_coarse_bwd
     fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
         ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
+    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [
         ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
@@ -451,6 +451,22 @@ def composite_coarse(fields: torch.Tensor, corig: torch.Tensor, cs: int = 4,
     return out
 
 
+_H_BWD_CTAS = 512  # two waves of kernel H backward's CTA slots on an H100 (132 SMs x 2)
+
+
+def coarse_bwd_ranks(n_ct: int, cs: int) -> int:
+    """CTAs of the thread-block cluster that serves one coarse tile in
+    kernel H's backward (each takes every ranks-th fine tile): the fewest,
+    a power of two, that give the grid at least ``_H_BWD_CTAS`` CTAs, and
+    at most cs² and 16 (the non-portable cluster size). More ranks than
+    that cost more than they gain: each waits at the cluster barrier for
+    its slowest fine tile (PERF.md §6)."""
+    ranks = 1
+    while n_ct * ranks < _H_BWD_CTAS and 2 * ranks <= min(cs * cs, 16):
+        ranks *= 2
+    return ranks
+
+
 def composite_coarse_bwd(fields: torch.Tensor, corig: torch.Tensor, cot: torch.Tensor,
                          cs: int = 4, tile: int = 16, alpha_min: float = 1.0 / 255.0,
                          alpha_max: float = 0.99) -> torch.Tensor:
@@ -467,8 +483,8 @@ def composite_coarse_bwd(fields: torch.Tensor, corig: torch.Tensor, cot: torch.T
     grad = torch.empty_like(fields)
     _, bwd = _h_fns()
     _build.check("composite_coarse", bwd(corig.data_ptr(), fields.data_ptr(), cot.data_ptr(),
-                                         grad.data_ptr(), n_ct, kc, cs, alpha_min, alpha_max,
-                                         _build.stream_ptr(fields.device)))
+                                         grad.data_ptr(), n_ct, kc, cs, coarse_bwd_ranks(n_ct, cs),
+                                         alpha_min, alpha_max, _build.stream_ptr(fields.device)))
     _build.LAUNCHES["composite_coarse_bwd", (n_ct, kc, cs)] += 1
     return grad
 

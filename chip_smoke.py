@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    the same work (the largest of tensor-core flops, ex2 at the SFU's rate,
    and bytes): A-E at the sampling (256^2 and 512^2) and training shapes
    and D at the 160-wide L2 shape (F: kernel B
-   under ``attention_backend("packed_flash")`` at L0 and L2), H at every
-   stage-1 shape (recon steps, four-view test, validation orbit, testset
-   grid), G at the 64^2 recon shapes and on dense synthetic tiles; then
-   edge shapes off the main path (G against float64 among them);
+   under ``attention_backend("packed_flash")`` at L0 and L2), C also at a
+   ragged M at each width, H at every stage-1 shape (recon steps, four-view
+   test, validation orbit, testset grid) and on dense synthetic coarse tiles
+   at the recon step's shape (the 0.99 clamp at the back and at the front
+   of the lists) and at bucket 2's (a cluster of ranks a coarse tile), G at the 64^2 recon shapes and on dense synthetic tiles,
+   each backward of H and G also launched twice to show it bitwise
+   deterministic; then edge shapes off the main path (G against float64
+   among them);
 3. end to end: the sampling CLI at full width (SD1.5 widths, 256x256,
    4 views x 16 frames, 2 DDIM steps, random weights from a seed) with every
    launch counter set to 0 just before and read just after; then again at
@@ -51,8 +55,10 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
 9. fields: the recon CLI again at 64^2 (kernel G's route), its timed
    full-schedule step and one loss + backward through G against plain ops.
 
-The line before the last is a JSON object with one row per kernel and
-path shape; the last line is ``{"ok": true, "device": {...}}``. Imports
+The summary lines give the step times with kernel C's and H's share of the
+profiled device time, each beside the card's name and power limit. The
+line before the last is a JSON object with one row per kernel and path
+shape; the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
@@ -177,10 +183,15 @@ def _agree(out: torch.Tensor, ref: torch.Tensor):
     return err, tol, rel, ok
 
 
-def env_phase() -> dict:
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def env_phase() -> dict:
+    smi = _smi()
     print(smi)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -428,6 +439,10 @@ def kernel_phase() -> list:
         _geglu_case("train L1 M=16384 C=640 I=2560", 16384, 640, 2560, gen),
         _geglu_case("train L2 M=4096 C=1280 I=5120", 4096, 1280, 5120, gen),
         _geglu_case("train L3 M=1024 C=1280 I=5120", 1024, 1280, 5120, gen),
+        # a ragged M at each width (TMA's zero fill, stores clipped at row M)
+        _geglu_case("ragged M=8264 C=320 I=1280", 8264, 320, 1280, gen),
+        _geglu_case("ragged M=8264 C=640 I=2560", 8264, 640, 2560, gen),
+        _geglu_case("ragged M=8264 C=1280 I=5120", 8264, 1280, 5120, gen),
         _flash_bwd_case("train L0 cross-view (16, 4096, 320) h8", 16, 4096, 320, 8, 1, gen),
         _flash_bwd_case("train L0 i2v frame-0 K/V (16, 4096, 320) h8 kv_group 16",
                         16, 4096, 320, 8, 16, gen),
@@ -445,6 +460,7 @@ def kernel_phase() -> list:
         _packed_bwd_case("L2 temporal (512, 16, 1280) h8, backend packed_flash",
                          512, 16, 1280, 8, gen),
     ]
+    print(f"[kernel] card {_smi()}")
     for r in rows:
         extra = f" lse_err {r['lse_err']:.3e}" if "lse_err" in r else ""
         print(f"[kernel] {r['name']:<15} {r['shape']:<58} max|d| {r['max_abs_err']:.3e} "
@@ -530,9 +546,10 @@ def _family(name: str) -> str:
     return "elementwise / copy / other"
 
 
-def _print_profile(tag: str, what: str, prof, wall_ms: float) -> None:
+def _print_profile(tag: str, what: str, prof, wall_ms: float) -> dict:
     """Device time by kernel family, the idle share of the host-clock wall
-    and the top kernels of one profiled window."""
+    and the top kernels of one profiled window; returns the ms of each
+    family and the busy total ("busy"), empty where nothing was recorded."""
     fams: dict = {}
     kernels = []
     for e in prof.key_averages():
@@ -543,13 +560,23 @@ def _print_profile(tag: str, what: str, prof, wall_ms: float) -> None:
     busy = sum(fams.values())
     if not busy:
         print(f"{tag} the profiler recorded no device time: not measured")
-        return
+        return {}
     print(f"{tag} {what}: wall {wall_ms:.2f} ms (profiler on), device busy {busy:.2f} ms, "
           f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for fam, ms in sorted(fams.items(), key=lambda x: -x[1]):
         print(f"{tag} {fam:<28} {ms:9.3f} ms  {ms / busy:6.1%}")
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         print(f"{tag} top kernel {ms:9.3f} ms x{count:<4} {name[:90]}")
+    return dict(fams, busy=busy)
+
+
+def _share(prof: dict, *families: str) -> str:
+    """'x ms (y% of the profiled device time)' of the named kernel families,
+    or 'not measured' where the profiler recorded no device time."""
+    if not prof:
+        return "not measured"
+    ms = sum(prof.get(f, 0.0) for f in families)
+    return f"{ms:.3f} ms ({ms / prof['busy']:.1%} of {prof['busy']:.2f} ms busy)"
 
 
 def reference_phase() -> dict:
@@ -581,7 +608,7 @@ def reference_phase() -> dict:
             unet(lat, t, text, cam, img)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    _print_profile("[profile]", "one UNet forward, CFG batch 128 frames", prof, wall_ms)
+    fams = _print_profile("[profile]", "one UNet forward, CFG batch 128 frames", prof, wall_ms)
 
     with torch.inference_mode():
         _build.reset_launches()
@@ -603,7 +630,7 @@ def reference_phase() -> dict:
           f"through the plain ops {plain_counts}")
     del unet
     torch.cuda.empty_cache()
-    return dict(ok=ok, rel=rel)
+    return dict(ok=ok, rel=rel, c_share=_share(fams, "kernel C geglu"))
 
 
 def edge_phase() -> bool:
@@ -632,7 +659,7 @@ def edge_phase() -> bool:
         q, k, v = rnd(b, s_, c), rnd(b, s_, c), rnd(b, s_, c)
         cases.append((f"packed B={b} S={s_} C={c} h{h}", A.packed_attention(q, k, v, h, 0.15),
                       A.packed_small_attention(q, k, v, h, 0.15)))
-    for m, c, inner in ((300, 320, 1280), (1, 64, 64)):
+    for m, c, inner in ((300, 320, 1280), (1, 64, 64), (77, 64, 192), (130, 384, 1536)):
         args = (rnd(m, c), rnd(2 * inner, c, std=c ** -0.5), rnd(2 * inner, std=0.1),
                 rnd(c, inner, std=inner ** -0.5), rnd(c, std=0.1))
         cases.append((f"geglu M={m} C={c} I={inner}", G.geglu(*args), G._geglu_plain(*args)))
@@ -846,8 +873,8 @@ def train_reference_phase() -> dict:
         t0 = time.perf_counter()
         loss_k, grad_k, counts_k = step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _print_profile("[train-profile]", "one loss + backward at full width (64 frames, "
-                   "gradient checkpointing)", prof, wall_ms)
+    fams = _print_profile("[train-profile]", "one loss + backward at full width (64 frames, "
+                          "gradient checkpointing)", prof, wall_ms)
     with routing.plain_ops():
         loss_p, grad_p, counts_p = step()
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -861,7 +888,7 @@ def train_reference_phase() -> dict:
           f"kernels {counts_k} (expected {PER_TRAIN_STEP}), through the plain ops {counts_p}")
     del unet, grad_k, grad_p
     torch.cuda.empty_cache()
-    return dict(ok=ok, rel=rel, loss_rel=loss_rel)
+    return dict(ok=ok, rel=rel, loss_rel=loss_rel, c_share=_share(fams, "kernel C geglu"))
 
 
 RECON_YAML = "configs/animate3d/motion_recon_frame_16.yaml"
@@ -909,6 +936,37 @@ def _g_tiles(n_t: int, k: int, seed: int, clamp_front: bool = False):
     f[:, 6:9] = rng.uniform(0, 1, (n_t, 3, k))
     f[:, 9] = np.sort(rng.uniform(1, 5, (n_t, k)), axis=-1)
     f[:, 10] = rng.uniform(size=(n_t, k)) > 0.1
+    return org, f
+
+
+def _h_tiles(n_ct: int, kc: int, seed: int, cs: int = 4, clamp_front: bool = False):
+    """Synthetic kernel-H fields: ``n_ct`` coarse tiles of cs x cs fine
+    16x16 tiles, 8 coarse tiles a row; per tile kc depth-sorted candidates
+    centred within 8 px around it, 1-8 px wide, opacity U(0.05, 1), 10% not
+    ``ok``, a 3-sigma radius row, and 4 wide candidates of opacity 1 where
+    the 0.99 clamp binds at the back of each list (with ``clamp_front``, at
+    the front). :func:`_g_tiles`' layout at the coarse tile's size: an asset
+    that covers its tiles, where the recon asset is faint. → (corig (n_ct,
+    2), fields (n_ct, 12, kc)) as numpy float32."""
+    rng = np.random.default_rng(seed)
+    span = 16 * cs
+    t = np.arange(n_ct)
+    org = np.stack([t % 8 * span, t // 8 * span], 1).astype(np.float32)
+    f = np.zeros((n_ct, 12, kc), np.float32)
+    f[:, 0] = rng.uniform(org[:, :1] - 8, org[:, :1] + span + 8, (n_ct, kc))
+    f[:, 1] = rng.uniform(org[:, 1:] - 8, org[:, 1:] + span + 8, (n_ct, kc))
+    sx, sy = rng.uniform(1.0, 8, (n_ct, kc)), rng.uniform(1.0, 8, (n_ct, kc))
+    rho = rng.uniform(-0.5, 0.5, (n_ct, kc))
+    c00, c11, c01 = sx ** 2, sy ** 2, rho * sx * sy
+    det = c00 * c11 - c01 ** 2
+    f[:, 2], f[:, 3], f[:, 4] = c11 / det, -c01 / det, c00 / det
+    f[:, 5] = rng.uniform(0.05, 1.0, (n_ct, kc))
+    f[:, 11] = 3 * np.maximum(sx, sy)
+    cl = slice(0, 4) if clamp_front else slice(-4, None)
+    f[:, 2, cl], f[:, 3, cl], f[:, 4, cl], f[:, 5, cl], f[:, 11, cl] = 1 / 64, 0.0, 1 / 64, 1.0, 24
+    f[:, 6:9] = rng.uniform(0, 1, (n_ct, 3, kc))
+    f[:, 9] = np.sort(rng.uniform(1, 5, (n_ct, kc)), axis=-1)
+    f[:, 10] = rng.uniform(size=(n_ct, kc)) > 0.1
     return org, f
 
 
@@ -977,9 +1035,10 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True) -> lis
         cot = torch.randn(out.shape, generator=gen, device="cuda") * 1e-3
         g = bwd(fields, orig, cot)
         gref = bwd_plain(fields, orig, cot)
+        same = bool(torch.equal(g, bwd(fields, orig, cot)))  # deterministic: no atomics
         torch.cuda.synchronize()
         rel = float((g - gref).norm() / gref.norm())
-        ok = (rel <= H_GRAD_REL and bool(torch.isfinite(g).all())
+        ok = (rel <= H_GRAD_REL and bool(torch.isfinite(g).all()) and same
               and float(g[:, 10:].abs().max()) == 0)
         # planes 0-5 of the cotangent (r, g, b, alpha, depth, T_final)
         bound, by = _bound_f32(H_BWD_OPS[0] * pairs + H_BWD_OPS[1] * live,
@@ -987,7 +1046,8 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True) -> lis
         res.append(dict(
             name=f"{name}_bwd", shape=shape, keys=[(f"{name}_bwd", key)],
             max_abs_err=float((g - gref).abs().max()), tol=None, rel=rel, rel_tol=H_GRAD_REL,
-            ok=ok, pairs=pairs, live=live, ms=_time_ms(lambda: bwd(fields, orig, cot), 5),
+            ok=ok, same=same, pairs=pairs, live=live,
+            ms=_time_ms(lambda: bwd(fields, orig, cot), 5),
             plain_ms=_time_ms(lambda: bwd_plain(fields, orig, cot), 1),
             library_ms=None, bound_ms=bound, bound_by=by))
     return res
@@ -1005,13 +1065,16 @@ def composite_kernel_phase() -> list:
     four-view test's 64 renders at 512^2, the validation orbit's 120 at
     512^2 and one 32-render call of the testset grid at 1024^2. G: the
     fields route's step at 64^2 (64 and 8 renders), forward and backward,
-    and the step's shape on dense synthetic tiles (:func:`_g_tiles`).
-    No PyTorch call computes H or G: library_ms is null."""
+    and the step's shape on dense synthetic tiles (:func:`_g_tiles`); H
+    also on dense synthetic coarse tiles (:func:`_h_tiles`) at the recon
+    step's and bucket 2's shapes. No PyTorch call computes H or G:
+    library_ms is null."""
     from animate3d_tpu_torch.data.cameras import (
         fixed_view_cameras,
         testset_grid_cameras,
         val_orbit_cameras,
     )
+    from animate3d_tpu_torch.ops import rasterize as R
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     fixed = lambda res: fixed_view_cameras(height=res, width=res, total_frame=RECON_FRAMES)
@@ -1045,8 +1108,23 @@ def composite_kernel_phase() -> list:
     # the step's shape on an asset that covers its tiles (the recon asset is faint)
     d_org, d_f = (torch.from_numpy(a).cuda() for a in _g_tiles(1024, 256, 3))
     rows += _composite_rows("G", "dense synthetic tiles, 1024 of", d_f, d_org, gen)
+    # H at the recon step's shape on dense synthetic coarse tiles, the 0.99
+    # clamp binding at the back of each list, then at its front
+    for front in (False, True):
+        d_org, d_f = (torch.from_numpy(a).cuda() for a in _h_tiles(1024, 512, 4 + front,
+                                                                   clamp_front=front))
+        rows += _composite_rows("H", "dense synthetic coarse tiles, clamp at the "
+                                + ("front" if front else "back"), d_f, d_org, gen)
+    # and at bucket 2's 128 coarse tiles, where a cluster of several ranks
+    # serves each coarse tile and sums their blocks over distributed shared memory
+    d_org, d_f = (torch.from_numpy(a).cuda() for a in _h_tiles(128, 512, 6))
+    rows += _composite_rows("H", f"dense synthetic coarse tiles, {R.coarse_bwd_ranks(128, 4)} "
+                            "ranks a cluster", d_f, d_org, gen)
+    print(f"[kernel] card {_smi()}")
     for r in rows:
         tol = f"(tol {r['tol']:.3e}) " if r["tol"] is not None else ""
+        if "same" in r:
+            tol += f"rows 10-11 zero, two launches bitwise equal {r['same']}; "
         print(f"[kernel] {r['name']:<20} {r['shape']:<64} max|d| {r['max_abs_err']:.3e} {tol}"
               f"rel L2 {r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} "
@@ -1273,10 +1351,12 @@ def recon_timing_phase(system, frames: str, per_step: dict, tag: str,
         system.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _print_profile(f"[{tag}-profile]", f"one recon step at the full schedule (64 renders at "
-                   f"{res}^2, 20,000 gaussians)", prof, wall_ms)
+    fams = _print_profile(f"[{tag}-profile]", f"one recon step at the full schedule (64 renders "
+                          f"at {res}^2, 20,000 gaussians)", prof, wall_ms)
     return dict(ok=totals == expected and np.isfinite(full), per_shape=per_shape, step_s=full,
-                buckets=(t2, t4, t8), avg_s=avg, peak_gb=peak_gb, batch=batch)
+                buckets=(t2, t4, t8), avg_s=avg, peak_gb=peak_gb, batch=batch,
+                h_bwd_share=_share(fams, "kernel H bwd"),
+                h_share=_share(fams, "kernel H fwd", "kernel H bwd"))
 
 
 def recon_reference_phase(system, batch, per_step: dict, tag: str) -> dict:
@@ -1456,7 +1536,8 @@ def main() -> int:
         return _fail("the 512x512 sampling run failed its checks")
     if unchecked("sampling-512", e2e512):
         return 1
-    if not reference_phase()["ok"]:
+    ref = reference_phase()
+    if not ref["ok"]:
         return _fail("kernels disagree with plain ops end to end")
     with tempfile.TemporaryDirectory() as tmp:
         train = train_phase(tmp)
@@ -1464,7 +1545,8 @@ def main() -> int:
         return _fail("the full-width train run failed its checks")
     if unchecked("train", train):
         return 1
-    if not train_reference_phase()["ok"]:
+    train_ref = train_reference_phase()
+    if not train_ref["ok"]:
         return _fail("the train step through the kernels disagrees with plain ops")
     pf = packed_flash_phase()
     if not pf["ok"]:
@@ -1521,6 +1603,10 @@ def main() -> int:
           f"{f_timing['step_s']:.4f}; peak memory {f_timing['peak_gb']:.2f} GiB; testset "
           f"--test at {TESTSET_RES}^2 {ev['wall_s']:.2f} s, its render alone "
           f"{ev['render_ms']:.2f} ms, peak {ev['peak_gb']:.2f} GiB; card {env['smi']}")
+    print(f"[summary] kernel C (GEGLU) in one full-width UNet forward at 256^2: "
+          f"{ref['c_share']}; in one train loss + backward: {train_ref['c_share']}; kernel H "
+          f"in one full-schedule recon step: {timing['h_share']}, its backward "
+          f"{timing['h_bwd_share']}; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",

@@ -201,10 +201,54 @@ def test_flash_bwd_split_fills_the_card(kv_batches, sk, heads, kv_group, split):
 
 @pytest.mark.parametrize("m,c,inner", [(131072, 320, 1280), (32768, 640, 2560),
                                        (8192, 1280, 5120), (2048, 1280, 5120),
-                                       (100, 320, 1280)])
+                                       (100, 320, 1280),
+                                       # 512^2 sampling and the trainer's shapes
+                                       (524288, 320, 1280), (131072, 640, 2560),
+                                       (32768, 1280, 5120), (65536, 320, 1280),
+                                       (16384, 640, 2560), (4096, 1280, 5120),
+                                       (1024, 1280, 5120)])
 def test_geglu_routing_matches_jax(m, c, inner):
-    # JAX geglu_ff on the TPU: inner % 640 == 0 and at least 256 rows
-    assert TG.geglu_plan(m, c, inner) == (inner % JG._BI == 0 and m >= JG._BM)
+    # JAX geglu_ff on the TPU: inner % 640 == 0 and at least 256 rows; where
+    # the port routes to kernel C, the kernel takes the shape
+    plan = TG.geglu_plan(m, c, inner)
+    assert plan == (inner % JG._BI == 0 and m >= JG._BM)
+    if plan:
+        TG.check_kernel_shape(c, inner)
+
+
+@pytest.mark.parametrize("c,inner", [(96, 1280), (320, 1000), (32, 64), (320, 0)])
+def test_geglu_kernel_shape_rule_raises(c, inner):
+    # kernel C takes C and I that are multiples of 64 and nothing else
+    with pytest.raises(ValueError, match="multiples of 64"):
+        TG.check_kernel_shape(c, inner)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8192 + 72, 100, 1])
+def test_geglu_kernel_matches_plain_on_cuda(m):
+    """Kernel C against its plain version at each SD1.5 width, at an I that
+    is no multiple of 128 and at a C that is no multiple of 160 (the output
+    launch's 128-column tiles), at a ragged M and at M under one tile
+    (2^-6 of the largest output and 1e-2 relative L2), and the shape rule
+    raising on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(m)
+
+    def rnd(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    for c, inner in ((320, 1280), (640, 2560), (1280, 5120), (64, 192), (384, 1536)):
+        x = rnd((m, c), 1.0)
+        w1, b1 = rnd((2 * inner, c), c ** -0.5), rnd((2 * inner,), 0.1)
+        w2, b2 = rnd((c, inner), inner ** -0.5), rnd((c,), 0.1)
+        out = TG.geglu(x, w1, b1, w2, b2).float()
+        ref = TG._geglu_plain(x, w1, b1, w2, b2).float()
+        assert (out - ref).abs().max() <= 2 ** -6 * ref.abs().max(), (c, inner)
+        assert (out - ref).norm() <= 1e-2 * ref.norm(), (c, inner)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        TG.geglu(rnd((m, 96), 1.0), rnd((384, 96), 0.1), rnd((384,), 0.1),
+                 rnd((96, 192), 0.1), rnd((96,), 0.1))
 
 
 def test_cpu_tensors_take_plain_path_without_building():

@@ -245,6 +245,72 @@ def test_h_wrapper_rejects_what_the_kernel_does_not_take():
         R._check_h("composite_coarse", (f.double(), torch.zeros(2, 2)), 128, 16)
 
 
+@pytest.mark.parametrize("n_ct,cs,ranks", [(1024, 4, 1), (512, 4, 1), (256, 4, 2),
+                                           (128, 4, 4), (3, 4, 16), (3, 2, 4), (3, 1, 1),
+                                           (5, 3, 8)])
+def test_h_bwd_ranks_fill_the_card(n_ct, cs, ranks):
+    # the recon step's 1024 coarse tiles and the frame buckets' 512 / 256 /
+    # 128: clusters only where the coarse tiles alone leave the grid under
+    # 512 CTAs, a power of two, at most cs^2 and 16
+    got = R.coarse_bwd_ranks(n_ct, cs)
+    assert got == ranks
+    assert got & (got - 1) == 0 and got <= min(cs * cs, 16)
+    # rank r walks fine tiles r, r + ranks, ... (csrc/composite_coarse.cu):
+    # every fine tile falls to exactly one rank and no rank is idle
+    walks = [list(range(r, cs * cs, got)) for r in range(got)]
+    assert all(walks) and sorted(sum(walks, [])) == list(range(cs * cs))
+
+
+def _h_fields(n_ct, kc, cs, dense, seed):
+    """Coarse tiles of cs x cs fine tiles, 8 a row, with kc depth-sorted
+    candidates around each: dense (1-8 px wide, opacity U(0.05, 1), 4 wide
+    opaque candidates at the front where the 0.99 clamp binds) or faint
+    (0.5-2 px wide, opacity U(0.01, 0.1), as the recon asset)."""
+    rng = np.random.default_rng(seed)
+    ext = 16 * cs
+    t = np.arange(n_ct)
+    corig = np.stack([t % 8 * ext, t // 8 * ext], 1).astype(np.float32)
+    f = np.zeros((n_ct, 12, kc), np.float32)
+    f[:, 0] = rng.uniform(corig[:, :1] - 8, corig[:, :1] + ext + 8, (n_ct, kc))
+    f[:, 1] = rng.uniform(corig[:, 1:] - 8, corig[:, 1:] + ext + 8, (n_ct, kc))
+    lo, hi = (1.0, 8.0) if dense else (0.5, 2.0)
+    sx, sy = rng.uniform(lo, hi, (n_ct, kc)), rng.uniform(lo, hi, (n_ct, kc))
+    rho = rng.uniform(-0.5, 0.5, (n_ct, kc))
+    c00, c11, c01 = sx ** 2, sy ** 2, rho * sx * sy
+    det = c00 * c11 - c01 ** 2
+    f[:, 2], f[:, 3], f[:, 4] = c11 / det, -c01 / det, c00 / det
+    f[:, 5] = rng.uniform(0.05, 1.0, (n_ct, kc)) if dense else rng.uniform(0.01, 0.1, (n_ct, kc))
+    f[:, 11] = 3 * np.maximum(sx, sy)
+    if dense:
+        f[:, 2, :4], f[:, 3, :4], f[:, 4, :4], f[:, 5, :4], f[:, 11, :4] = 1 / 64, 0, 1 / 64, 1, 24
+    f[:, 6:9] = rng.uniform(0, 1, (n_ct, 3, kc))
+    f[:, 9] = np.sort(rng.uniform(1, 5, (n_ct, kc)), axis=-1)
+    f[:, 10] = rng.uniform(size=(n_ct, kc)) > 0.1
+    return corig, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("cs", [1, 2, 4])
+@pytest.mark.parametrize("kc", [128, 256, 512])
+def test_h_bwd_kernel_matches_plain_on_cuda(kc, cs, dense):
+    """Kernel H's backward against its plain version (relative L2 <= 1e-3:
+    f32 sums in another order; rows 10-11 zero), two launches bitwise
+    equal (no atomics), at 24 coarse tiles (clusters of up to 16 ranks) and
+    at 600 (one rank)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for n_ct in (24, 600):
+        corig, f = _h_fields(n_ct, kc, cs, dense, seed=kc + cs)
+        fc, cc = torch.from_numpy(f).cuda(), torch.from_numpy(corig).cuda()
+        cot = torch.randn((n_ct, cs * cs, 8, 256), device="cuda") * 1e-2
+        g = R.composite_coarse_bwd(fc, cc, cot, cs)
+        gref = R._composite_coarse_bwd_plain(fc, cc, cot, cs)
+        assert torch.equal(g, R.composite_coarse_bwd(fc, cc, cot, cs))
+        assert float(g[:, 10:].abs().max()) == 0.0
+        assert float((g - gref).norm() / gref.norm()) <= 1e-3
+
+
 @pytest.mark.cuda
 def test_h_kernel_matches_plain_on_cuda():
     """Kernel H forward and backward against the plain versions on the card
