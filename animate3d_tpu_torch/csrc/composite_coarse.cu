@@ -22,9 +22,30 @@
 //
 // Design. The TPU puts K on lanes (log-step prefix products over a 256 x kc
 // VMEM scratch). Here one thread owns one pixel and walks the candidates
-// front to back; the coarse tile's fields sit in shared memory (24 KB at
-// kc 512).
-//   forward: one CTA of 256 threads per fine tile.
+// front to back. Both directions first list the fine tile's hit candidates
+// (build_hit_list: the candidates whose AABB meets the fine tile, by ballot
+// and prefix, front to back), so the walks visit only those: about 18 of
+// 512 on an average fine tile of the recon asset.
+//   forward: one CTA of 256 threads per fine tile. It loads the coarse
+//     tile's three AABB rows (0, 1, 11: 6 KB at kc 512, one 16-byte load or
+//     two a thread, all in flight together), lists the hits, then gathers
+//     only the listed candidates' rows 0-10 into 48-byte records (three
+//     16-byte shared loads a candidate in the walk), so a fine tile reads
+//     6 KB plus 44 bytes a hit where it read all 24 KB with a load a float
+//     in turn. The walk runs block by block over the list; a block is
+//     skipped at the kb boundaries of the original candidate index exactly
+//     where the TPU kernel skips it (no listed candidate in it, or the
+//     largest T over the tile <= 1e-4 at its start: one __syncthreads_or,
+//     and then every later block is skipped too). Within a block every
+//     pixel composites every listed candidate, as the TPU kernel does: no
+//     per-pixel or per-warp exit, so T_final keeps falling under 1e-4. A
+//     warp passes over a candidate without its exp only where all its 32
+//     pixels' power lies under log(alpha_min / opacity) less a margin, so
+//     that alpha < alpha_min there for certain (composite_records). Each
+//     pixel does the float operations of the earlier all-candidates walk in
+//     the same order, so the planes are the same bits. A multicast of the
+//     whole 24 KB over a cluster of the coarse tile's 16 CTAs was slower
+//     at every path row (PERF.md).
 //   backward: a thread-block cluster of `ranks` CTAs per coarse tile;
 //     rank r takes fine tiles r, r + ranks, ..., so with ranks > 1 a coarse
 //     tile's fine tiles run in parallel where the TPU's grid step walks them
@@ -33,10 +54,9 @@
 //     rank waits at the cluster barrier for the cluster's slowest fine
 //     tile, so on the recon asset, whose fine tiles differ a lot in work,
 //     one CTA a fine tile costs more than it gains once the coarse tiles
-//     alone fill the card (ops/rasterize.py::coarse_bwd_ranks). Per fine
-//     tile, (0) the CTA lists the candidates whose AABB meets the fine tile
-//     (ballot + prefix), so the walks below visit only those (about 18 of
-//     512 on an average fine tile of the recon asset); (1) a forward pass
+//     alone fill the card (ops/rasterize.py::coarse_bwd_ranks). The coarse
+//     tile's fields sit in shared memory (24 KB at kc 512). Per fine tile,
+//     (0) the hit list; (1) a forward pass
 //     keeps each pixel's transmittance at the start of every sub-block of
 //     SB = 32 listed candidates (shared memory, as kernel G does); (2) back
 //     to front, each sub-block's T before every candidate is recomputed from
@@ -60,12 +80,14 @@
 // kernel G (composite_common.cuh).
 //
 // Bound on the H100: at the recon shapes the least time is set by the bytes
-// (fields read once, planes written once); the f32 arithmetic per evaluated
-// (pixel, candidate) pair stays under it. Both kernels run well above that
-// bound (PERF.md): each thread's walk over the candidates is sequential,
-// and the backward evaluates each listed pair three times and spends 50
-// shuffles a warp on every listed candidate. Not yet: the hit list in the
-// forward, warp-level early exit, tensor-core sums.
+// (fields read once, planes written once: the 8 planes of 256 f32 a fine
+// tile are 134 MB of the recon step's 159 MB); on dense tiles by the f32
+// arithmetic per evaluated (pixel, candidate) pair. The forward is held by
+// its walk's issue rate, about 45 instructions a warp and candidate where
+// the warp does not skip (20 where it does), and on the faint recon asset
+// by each fine tile's chain of two dependent loads and five barriers; the
+// backward evaluates each listed pair three times and spends 50 shuffles a
+// warp on every listed candidate (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -85,66 +107,180 @@ constexpr float T_STOP = 1e-4f;
 constexpr int SB = 32;           // candidates per recomputed sub-block of the backward
 constexpr int MAX_CLUSTER = 16;  // CTAs (fine tiles) of one coarse tile's cluster
 
-// f: the coarse tile's fields in shared memory, row stride kc.
-__device__ __forceinline__ bool tile_hit(const float* f, int kc, int k, float tx0,
-                                         float ty0) {
-  const float x = f[k], y = f[kc + k], r = f[11 * kc + k];
+// Whether candidate k's AABB (rows x, y and radius) meets the fine tile at (tx0, ty0).
+__device__ __forceinline__ bool tile_hit(const float* xr, const float* yr, const float* rr,
+                                         int k, float tx0, float ty0) {
+  const float x = xr[k], y = yr[k], r = rr[k];
   return (x + r >= tx0) && (x - r < tx0 + TILE) && (y + r >= ty0) &&
          (y - r < ty0 + TILE);
 }
 
-// Hit flags of every candidate for the fine tile at (tx0, ty0).
-__device__ __forceinline__ void mark_hits(const float* f, int kc, float tx0, float ty0,
-                                          int* hit) {
-  for (int k = threadIdx.x; k < kc; k += PX) hit[k] = tile_hit(f, kc, k, tx0, ty0);
+// The fine tile's hit list, shared by the forward and the backward: the
+// candidates k < kc whose AABB meets the fine tile at (tx0, ty0), front to
+// back, in hl[0, n) (ballot + prefix); gpre[g] counts the hits before
+// 32-candidate group g, gpre[ngrp] = n. Called by all PX threads; returns
+// after a barrier, with hl and gpre visible to every thread.
+__device__ __forceinline__ void build_hit_list(const float* xr, const float* yr,
+                                               const float* rr, int kc, float tx0, float ty0,
+                                               int* hl, unsigned* gbal, int* gpre) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ngrp = (kc + 31) / 32;  // <= 32
+  for (int k0 = 0; k0 < kc; k0 += PX) {
+    const int k = k0 + tid;
+    const unsigned bal = __ballot_sync(0xffffffffu, k < kc && tile_hit(xr, yr, rr, k, tx0, ty0));
+    if (lane == 0 && k < kc) gbal[k >> 5] = bal;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const int c = tid < ngrp ? __popc(gbal[tid]) : 0;
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += n;
+    }
+    if (tid < ngrp) gpre[tid] = incl - c;
+    if (tid == 31) gpre[ngrp] = incl;
+  }
+  __syncthreads();
+  for (int k = tid; k < kc; k += PX) {
+    const unsigned bal = gbal[k >> 5];
+    if ((bal >> (k & 31)) & 1u) hl[gpre[k >> 5] + __popc(bal & ((1u << (k & 31)) - 1u))] = k;
+  }
+  __syncthreads();
+}
+
+// hits of the list before block b's first candidate (blocks of kb = min(kc, 128))
+__device__ __forceinline__ int hits_before(const int* gpre, int ngrp, int kb, int b) {
+  return gpre[min(ngrp, (b * kb + 31) / 32)];
+}
+
+// A listed candidate's record in the forward: rows 0-10, then the skip
+// threshold (48 bytes, three 16-byte shared loads).
+constexpr int REC = 12;
+constexpr float SKIP_MARGIN = 1e-3f;
+
+// The power under which a candidate's alpha is below alpha_min for certain:
+// log(alpha_min / opacity) less a margin far above the rounding of logf,
+// expf and the product; +inf where it is never live (not ok, or no opacity
+// against a positive alpha_min), -inf where alpha_min <= 0.
+__device__ __forceinline__ float skip_below(float opacity, float ok, float alpha_min) {
+  if (!(ok > 0.f)) return INFINITY;
+  if (!(alpha_min > 0.f)) return -INFINITY;
+  if (!(opacity > 0.f)) return INFINITY;
+  return logf(alpha_min / opacity) - SKIP_MARGIN;
+}
+
+struct Planes {
+  float T = 1.f, r = 0.f, g = 0.f, b = 0.f, d = 0.f, a = 0.f;
+};
+
+// Composites the n records of rec, front to back, into this pixel's planes:
+// the float operations of cand_alpha and the TPU kernel's accumulation, in
+// order. A candidate whose power is under its skip threshold at all 32
+// pixels of the warp has alpha < alpha_min there, so the warp moves on
+// without its exp: nothing of the result changes.
+__device__ __forceinline__ void composite_records(const float* rec, int n, float gx, float gy,
+                                                  float alpha_min, float alpha_max, Planes& p) {
+#pragma unroll 2
+  for (int j = 0; j < n; ++j) {
+    float c[REC];
+    const float4* r4 = reinterpret_cast<const float4*>(rec + j * REC);
+#pragma unroll
+    for (int q = 0; q < REC / 4; ++q) {
+      const float4 x = r4[q];
+      c[4 * q] = x.x;
+      c[4 * q + 1] = x.y;
+      c[4 * q + 2] = x.z;
+      c[4 * q + 3] = x.w;
+    }
+    float dx, dy;
+    const float power = cand_power(c, 1, 0, gx, gy, dx, dy);
+    if (!__any_sync(0xffffffffu, power >= c[11])) continue;
+    const float raw = __fmul_rn(c[5], expf(power));
+    const float alpha = fminf(alpha_max, raw);
+    // ok > 0 holds here: skip_below() puts a candidate that is not ok past every power
+    const bool live = power <= 0.f && alpha >= alpha_min;
+    if ((live ? alpha : 0.f) > 0.f) {
+      const float w = alpha * p.T;
+      p.r += w * c[6];
+      p.g += w * c[7];
+      p.b += w * c[8];
+      p.d += w * c[9];
+      p.a += w;
+      p.T *= 1.f - alpha;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(PX)
     composite_coarse_fwd_kernel(const float* __restrict__ corig,
                                 const float* __restrict__ fields, float* __restrict__ out,
                                 int kc, int cs, float alpha_min, float alpha_max) {
-  extern __shared__ float smem[];
-  float* f = smem;                                 // NFIELD * kc
-  int* hit = reinterpret_cast<int*>(f + NFIELD * kc);  // kc
+  extern __shared__ float4 smem4[];
+  const int ngrp = (kc + 31) / 32;
+  float* rec = reinterpret_cast<float*>(smem4);  // kc * REC: listed candidates, list order
+  float* ab = rec + kc * REC;                     // 3 * kc: rows 0, 1, 11 of every candidate
+  int* hl = reinterpret_cast<int*>(ab + 3 * kc);  // kc: the fine tile's hit list
+  unsigned* gbal = reinterpret_cast<unsigned*>(hl + kc);  // ngrp: hit bits a group
+  int* gpre = reinterpret_cast<int*>(gbal + ngrp);        // ngrp + 1: hits before it
   const int tiles = cs * cs;
   const int ci = blockIdx.x / tiles, local = blockIdx.x % tiles;
   const int tid = threadIdx.x;
   const float* src = fields + (size_t)ci * NFIELD * kc;
-  for (int i = tid; i < NFIELD * kc; i += PX) f[i] = src[i];
+  if (kc % 4 == 0) {  // rows 0, 1, 11 as 16-byte loads, all in flight together
+    constexpr int MAXV = (3 * MAX_KC / 4 + PX - 1) / PX;
+    const int q4 = kc / 4;
+    float4 v[MAXV];
+#pragma unroll
+    for (int n = 0; n < MAXV; ++n) {
+      const int i = tid + n * PX, row = i / q4;
+      if (i < 3 * q4)
+        v[n] = reinterpret_cast<const float4*>(src + (row == 2 ? 11 : row) * kc)[i - row * q4];
+    }
+#pragma unroll
+    for (int n = 0; n < MAXV; ++n)
+      if (tid + n * PX < 3 * q4) reinterpret_cast<float4*>(ab)[tid + n * PX] = v[n];
+  } else {
+    for (int i = tid; i < kc; i += PX) {
+      ab[i] = src[i];
+      ab[kc + i] = src[kc + i];
+      ab[2 * kc + i] = src[11 * kc + i];
+    }
+  }
   const float tx0 = corig[2 * ci] + (float)(local % cs) * TILE;
   const float ty0 = corig[2 * ci + 1] + (float)(local / cs) * TILE;
   const float gx = (float)(tid % TILE) + tx0, gy = (float)(tid / TILE) + ty0;
   __syncthreads();
-  mark_hits(f, kc, tx0, ty0, hit);
+  build_hit_list(ab, ab + kc, ab + 2 * kc, kc, tx0, ty0, hl, gbal, gpre);
+  // only the listed candidates' other rows leave device memory
+  const int n = gpre[ngrp];
+  for (int i = tid; i < REC * n; i += PX) {
+    const int r = i / n, j = i - r * n, k = hl[j];
+    rec[j * REC + r] = r < 2    ? ab[r * kc + k]
+                       : r < 11 ? src[r * kc + k]
+                                : skip_below(src[5 * kc + k], src[10 * kc + k], alpha_min);
+  }
   __syncthreads();
 
   const int kb = kc < KB ? kc : KB;
-  float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, cd = 0.f, ca = 0.f;
-  for (int b0 = 0; b0 < kc; b0 += kb) {
-    const int any_hit = __syncthreads_or(tid < kb && hit[b0 + tid]);
-    const int any_t = __syncthreads_or(T > T_STOP);
-    if (!(any_hit && any_t)) continue;  // uniform over the CTA
-    for (int k = b0; k < b0 + kb; ++k) {
-      if (!hit[k]) continue;  // uniform
-      const Alpha a = cand_alpha(f, kc, k, gx, gy, alpha_min, alpha_max);
-      if (a.alpha > 0.f) {
-        const float w = a.alpha * T;
-        cr += w * f[6 * kc + k];
-        cg += w * f[7 * kc + k];
-        cb += w * f[8 * kc + k];
-        cd += w * f[9 * kc + k];
-        ca += w;
-        T *= 1.f - a.alpha;
-      }
-    }
+  const int nblocks = kc / kb;
+  Planes p;
+  for (int b = 0; b < nblocks; ++b) {
+    const int lo = hits_before(gpre, ngrp, kb, b), hi = hits_before(gpre, ngrp, kb, b + 1);
+    if (hi == lo) continue;  // no candidate of the block hits the tile: uniform
+    // the largest T at the block's start <= 1e-4: T never rises, so every
+    // later block is skipped too
+    if (!__syncthreads_or(p.T > T_STOP)) break;
+    composite_records(rec + lo * REC, hi - lo, gx, gy, alpha_min, alpha_max, p);
   }
   float* o = out + (size_t)blockIdx.x * 8 * PX + tid;
-  o[0] = cr;
-  o[PX] = cg;
-  o[2 * PX] = cb;
-  o[3 * PX] = ca;
-  o[4 * PX] = cd;
-  o[5 * PX] = T;
+  o[0] = p.r;
+  o[PX] = p.g;
+  o[2 * PX] = p.b;
+  o[3 * PX] = p.a;
+  o[4 * PX] = p.d;
+  o[5 * PX] = p.T;
   o[6 * PX] = 0.f;
   o[7 * PX] = 0.f;
 }
@@ -180,8 +316,6 @@ __global__ void __launch_bounds__(PX, 2)
   for (int i = tid; i < NGRAD * kc; i += PX) part[i] = 0.f;
   const int kb = kc < KB ? kc : KB;
   const int nblocks = kc / kb;
-  // hits of the list before block b's first candidate
-  auto hits_before = [&](int b) { return gpre[min(ngrp, (b * kb + 31) / 32)]; };
 
   for (int local = rank; local < tiles; local += Q) {
     const float tx0 = corig[2 * ci] + (float)(local % cs) * TILE;
@@ -189,28 +323,8 @@ __global__ void __launch_bounds__(PX, 2)
     const float gx = (float)(tid % TILE) + tx0, gy = (float)(tid / TILE) + ty0;
     __syncthreads();  // fields loaded / the previous tile's list consumed
 
-    // the hit list: the candidates whose AABB meets the fine tile, front to
-    // back, so that the walks below skip the others for free
-    for (int k0 = 0; k0 < kc; k0 += PX) {
-      const int k = k0 + tid;
-      const unsigned bal = __ballot_sync(0xffffffffu, k < kc && tile_hit(f, kc, k, tx0, ty0));
-      if (lane == 0 && k < kc) gbal[k >> 5] = bal;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int n = 0;
-      for (int g = 0; g < ngrp; ++g) {
-        gpre[g] = n;
-        n += __popc(gbal[g]);
-      }
-      gpre[ngrp] = n;
-    }
-    __syncthreads();
-    for (int k = tid; k < kc; k += PX) {
-      const unsigned bal = gbal[k >> 5];
-      if ((bal >> (k & 31)) & 1u) hl[gpre[k >> 5] + __popc(bal & ((1u << (k & 31)) - 1u))] = k;
-    }
-    __syncthreads();
+    // the hit list, so that the walks below skip the other candidates for free
+    build_hit_list(f, f + kc, f + 11 * kc, kc, tx0, ty0, hl, gbal, gpre);
 
     // pass 1: forward, keeping T at each sub-block's start; a block runs
     // where a candidate of it hits the tile and some pixel's T > 1e-4
@@ -218,7 +332,7 @@ __global__ void __launch_bounds__(PX, 2)
     int sbi = 0;  // sub-blocks so far
     float T = 1.f;
     for (int b = 0; b < nblocks; ++b) {
-      const int lo = hits_before(b), hi = hits_before(b + 1);
+      const int lo = hits_before(gpre, ngrp, kb, b), hi = hits_before(gpre, ngrp, kb, b + 1);
       if (hi == lo || !__syncthreads_or(T > T_STOP)) continue;  // uniform over the CTA
       ran |= 1u << b;
       for (int j0 = lo; j0 < hi; j0 += SB, ++sbi) {
@@ -238,7 +352,7 @@ __global__ void __launch_bounds__(PX, 2)
     float S = 0.f;
     for (int b = nblocks - 1; b >= 0; --b) {
       if (!((ran >> b) & 1u)) continue;  // uniform
-      const int lo = hits_before(b), hi = hits_before(b + 1);
+      const int lo = hits_before(gpre, ngrp, kb, b), hi = hits_before(gpre, ngrp, kb, b + 1);
       const int ns = (hi - lo + SB - 1) / SB;
       sbi -= ns;
       for (int s = ns - 1; s >= 0; --s) {
@@ -288,7 +402,9 @@ __global__ void __launch_bounds__(PX, 2)
   cluster.sync();  // no rank leaves while another reads its block
 }
 
-size_t fwd_smem(int kc) { return (size_t)NFIELD * kc * sizeof(float) + kc * sizeof(int); }
+size_t fwd_smem(int kc) {
+  return (size_t)(REC + 3) * kc * sizeof(float) + (kc + 2 * ((kc + 31) / 32) + 1) * sizeof(int);
+}
 
 size_t bwd_smem(int kc) {
   const size_t nsb = (kc + SB - 1) / SB, ngrp = (kc + 31) / 32;

@@ -26,17 +26,23 @@ struct Alpha {
   float dx, dy, e, raw, alpha;  // alpha == 0 where not live
 };
 
-// power = -0.5 (a dx^2 + c dy^2) - b dx dy, alpha = min(alpha_max, o e^power),
-// live where power <= 0, alpha >= alpha_min and ok > 0.
+// power = -0.5 (a dx^2 + c dy^2) - b dx dy of candidate k at pixel (gx, gy),
+// with its offsets dx, dy.
+__device__ __forceinline__ float cand_power(const float* f, int kc, int k, float gx, float gy,
+                                            float& dx, float& dy) {
+  dx = __fsub_rn(f[k], gx);
+  dy = __fsub_rn(f[kc + k], gy);
+  const float ca = f[2 * kc + k], cb = f[3 * kc + k], cc = f[4 * kc + k];
+  const float sq = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx), __fmul_rn(__fmul_rn(cc, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, sq), __fmul_rn(__fmul_rn(cb, dx), dy));
+}
+
+// alpha = min(alpha_max, o e^power), live where power <= 0, alpha >= alpha_min
+// and ok > 0.
 __device__ __forceinline__ Alpha cand_alpha(const float* f, int kc, int k, float gx,
                                             float gy, float alpha_min, float alpha_max) {
   Alpha a;
-  a.dx = __fsub_rn(f[k], gx);
-  a.dy = __fsub_rn(f[kc + k], gy);
-  const float ca = f[2 * kc + k], cb = f[3 * kc + k], cc = f[4 * kc + k];
-  const float sq = __fadd_rn(__fmul_rn(__fmul_rn(ca, a.dx), a.dx),
-                             __fmul_rn(__fmul_rn(cc, a.dy), a.dy));
-  const float power = __fsub_rn(__fmul_rn(-0.5f, sq), __fmul_rn(__fmul_rn(cb, a.dx), a.dy));
+  const float power = cand_power(f, kc, k, gx, gy, a.dx, a.dy);
   a.e = expf(power);
   a.raw = __fmul_rn(f[5 * kc + k], a.e);
   const float alpha = fminf(alpha_max, a.raw);

@@ -1,4 +1,5 @@
-// Packed tiny-sequence self-attention for Hopper (sm_90a), bf16 in/out.
+// Packed tiny-sequence self-attention (kernel B) for Hopper (sm_90a), bf16
+// in/out.
 //
 // Replaces: animate3d_tpu/ops/attention.py::_packed_padded_kernel, reached
 // through packed_temporal_flash_padded (the motion modules' temporal
@@ -9,202 +10,395 @@
 //
 // Computes, for each sequence of S tokens and each head, softmax(q k^T *
 // scale) v with the TPU kernel's numerics: the scale is applied after the
-// QK^T dot in f32, the softmax runs in exp2 form, and P is normalised BEFORE
-// its bf16 cast for the PV product (unlike the flash kernel, which divides
-// after PV). q/k/v/out are the merged (B, S, H*D) layout; heads are read by
-// stride, nothing is padded to 128 tokens or lanes.
+// QK^T dot in f32, the softmax runs in exp2 form, other sequences of a tile
+// are masked at -1e30, the row sum is floored at 1e-30, and P is normalised
+// BEFORE its bf16 cast for the PV product (unlike the flash kernel, which
+// divides after PV). q/k/v/out are the merged (B, S, H*D) layout; heads are
+// read by stride, nothing is padded to 128 tokens or lanes.
 //
 // Bound on the H100: memory. The work is 4*S*D flops per token and head
-// against 8*D bytes moved (q, k, v read, out written), about S/2 flops per
-// byte, far below the ~295 at which the tensor cores would bind. Design:
-// one CTA owns a tile of 16 (S <= 16) or 32 (S = 32) consecutive tokens,
-// i.e. whole sequences, across ALL heads, so its q/k/v loads are whole
-// contiguous (tile, H*D) rows, coalesced 16-byte loads into shared memory.
-// Each warp takes a head at a time: the (tile x tile) score block is one or
-// four bf16 WMMA products, masked to its sequences' block diagonal, the
-// softmax runs in registers, and PV is a second WMMA product.
+// against 8*D bytes moved (q, k, v read once, out written once), about S/2
+// flops per byte, far below the ~295 at which the tensor cores would bind.
+// So the design keeps loads in flight while the tensor cores work:
+//   * a unit is one head of a tile of 16 (S <= 16) or 32 (S = 32)
+//     consecutive tokens, i.e. whole sequences. Each warp (a warp pair at
+//     S = 32, each warp taking 16 query rows against all 32 keys) owns one
+//     unit at a time and stages only that head's q, k and v tile, so S 32
+//     at D 160 fits (63 KB for its pair);
+//   * a persistent grid: a CTA takes tiles b, b + grid, ... and its warps
+//     (or pairs) take the tile's heads i, i + groups, ..., so a tile's heads
+//     are read at about the same time and its rows leave DRAM whole, where
+//     a grid of one-warp CTAs walking (tile, head) units drifted apart and
+//     read each 80-byte head slice of the 40-wide heads on its own (1.55x
+//     slower at L0);
+//   * each warp's own cp.async ring (16-byte copies, zero-filled past the
+//     last token) keeps the next units' rows in flight while the current
+//     one computes: four stages at D 40 (eight warps, 123 KB, one CTA an
+//     SM), two at D 80 and 160 (about 64 KB, three CTAs an SM), from a
+//     sweep of ring shapes on the H100. cp.async and not TMA: a head slice
+//     is 80-320 bytes of a strided row, every warp is its own producer, and
+//     a cp.async group needs no mbarrier or tensor map;
+//   * both products are mma.sync m16n8k16 (m16n8k8 for D 40's last 8
+//     columns, so nothing is padded to 48) on ldmatrix fragments; the
+//     shared-memory rows hold an odd number of 16-byte chunks, so each
+//     ldmatrix phase touches 8 distinct bank groups;
+//   * the scores stay in the accumulator registers: the mask, the exp2
+//     softmax (row max and sum over the quad by shuffles) and the
+//     normalisation run there, and the bf16 P is repacked in registers as
+//     the A operand of the PV product; the output goes from its
+//     accumulators straight to global memory (8-byte stores after one
+//     shuffle), so no score, P or O passes through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-
-template <int TS, int DP>
-__host__ __device__ constexpr size_t warp_bytes() {
-  return (size_t)TS * TS * (sizeof(float) + sizeof(bf16)) + (size_t)TS * DP * sizeof(float);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int TS, int DP>
-size_t smem_bytes(int H) {
-  return 3 * (size_t)H * TS * DP * sizeof(bf16) + WARPS * warp_bytes<TS, DP>();
+// 16 bytes global -> shared; zero-filled (nothing read) where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-template <int TS, int DP>
-__global__ void __launch_bounds__(THREADS)
-packed_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int T,
-                   int S, int H, int D, long long q_ld, long long k_ld,
-                   long long v_ld, long long o_ld, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int HT = H * TS * DP;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + HT;
-  bf16* sV = sK + HT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* wbase = reinterpret_cast<unsigned char*>(sV + HT) + warp * warp_bytes<TS, DP>();
-  float* sSw = reinterpret_cast<float*>(wbase);
-  bf16* sPw = reinterpret_cast<bf16*>(sSw + TS * TS);
-  float* sOw = reinterpret_cast<float*>(sPw + TS * TS);
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-  const int t0 = blockIdx.x * TS;
-  constexpr int CH = DP / 8;
-  const int dch = D / 8;
-  for (int i = threadIdx.x; i < TS * H * CH; i += THREADS) {
-    const int rr = i / (H * CH), rem = i - rr * H * CH;
-    const int hh = rem / CH, c = rem - hh * CH;
-    const int t = t0 + rr;
-    uint4 zq = make_uint4(0u, 0u, 0u, 0u), zk = zq, zv = zq;
-    if (t < T && c < dch) {
-      const long long col = (long long)hh * D + c * 8;
-      zq = *reinterpret_cast<const uint4*>(q + t * q_ld + col);
-      zk = *reinterpret_cast<const uint4*>(k + t * k_ld + col);
-      zv = *reinterpret_cast<const uint4*>(v + t * v_ld + col);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b: m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: m16n8k8
+__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// GPC groups a CTA (a group: one warp, or a warp pair at TS 32); each
+// group has its own NST-stage ring of one head's q, k, v tile
+template <int TS, int D, int GPC, int NST>
+struct Cfg {
+  static constexpr int WG = TS / 16;  // warps a group: one per 16 query rows
+  static constexpr int THREADS = GPC * WG * 32;
+  static constexpr int CH = D / 8;                          // 16-byte chunks of a head row
+  static constexpr int RS = (CH % 2 ? CH : CH + 1) * 8;    // shared row stride, elements
+  static constexpr int TILE = TS * RS;                      // one of q, k, v
+  static constexpr int STAGE = 3 * TILE;
+  static constexpr size_t SMEM = (size_t)GPC * NST * STAGE * sizeof(bf16);
+  static constexpr int NT = TS / 8;   // score n-tiles (keys)
+  static constexpr int KS = D / 16;   // k16 steps of QK^T
+  static constexpr bool K8 = D % 16 != 0;  // plus one k8 step (D 40)
+  static constexpr int NO = D / 8;    // output n-tiles
+};
+
+// A CTA takes tiles b, b + gridDim.x, ...; in each, group i takes heads
+// i, i + GPC, ...: the CTA's groups read the heads of one tile at about the
+// same time, so the tile's rows leave DRAM whole.
+template <int TS, int D, int GPC, int NST>
+__global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
+    packed_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int T, int S,
+                       int H, long long q_ld, long long k_ld, long long v_ld, long long o_ld,
+                       float scale_log2) {
+  using C = Cfg<TS, D, GPC, NST>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gi = warp / C::WG, wq = warp % C::WG;  // group, its query-row block
+  const int gtid = tid - gi * C::WG * 32;
+  if (gi >= H) return;  // no head for this group (fewer heads than groups)
+  const int nh = (H - 1 - gi) / GPC + 1;  // heads of this group in each tile
+  const int tiles = (T + TS - 1) / TS;
+  const int sh = __ffs(S) - 1;  // S is a power of two
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw) + gi * NST * C::STAGE;
+
+  auto group_sync = [&]() {
+    if (C::WG == 1)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gi), "n"(C::WG * 32) : "memory");
+  };
+  // the group's j-th unit: (first token, head), or false past the last tile
+  auto unit = [&](int j, int& t0, int& h) {
+    const int ti = j / nh, tile = blockIdx.x + ti * gridDim.x;
+    t0 = tile * TS;
+    h = gi + (j - ti * nh) * GPC;
+    return tile < tiles;
+  };
+  // q, k, v rows of head h of the tile at t0 into stage st
+  auto load = [&](int t0, int h, int st) {
+    bf16* dst = ring + st * C::STAGE;
+#pragma unroll 4
+    for (int i = gtid; i < 3 * TS * C::CH; i += C::WG * 32) {
+      const int m = i / (TS * C::CH), rem = i - m * (TS * C::CH);
+      const int r = rem / C::CH, c = rem - r * C::CH;
+      const int t = t0 + r;
+      const bf16* base = m == 0 ? q : (m == 1 ? k : v);
+      const long long ld = m == 0 ? q_ld : (m == 1 ? k_ld : v_ld);
+      const bool ok = t < T;
+      cp_async16(dst + m * C::TILE + r * C::RS + c * 8,
+                 base + (ok ? (long long)t * ld + (long long)h * D + c * 8 : 0), ok);
     }
-    const int dst = (hh * TS + rr) * DP + c * 8;
-    *reinterpret_cast<uint4*>(sQ + dst) = zq;
-    *reinterpret_cast<uint4*>(sK + dst) = zk;
-    *reinterpret_cast<uint4*>(sV + dst) = zv;
+  };
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int ra = wq * 16 + g, rb = ra + 8;  // this thread's two query rows in the tile
+  const bool odd = tq & 1;
+
+#pragma unroll 1
+  for (int j = 0; j < NST - 1; ++j) {  // the ring's first NST - 1 units
+    int t0, h;
+    if (unit(j, t0, h)) load(t0, h, j);
+    cp_async_commit();
   }
-  __syncthreads();
+  for (int it = 0;; ++it) {
+    int t0, h;
+    if (!unit(it, t0, h)) break;
+    {
+      int t0n, hn;
+      if (unit(it + NST - 1, t0n, hn)) load(t0n, hn, (it + NST - 1) % NST);
+      cp_async_commit();
+    }
+    cp_async_wait<NST - 1>();  // this unit's group of copies has landed
+    group_sync();
 
-  constexpr int LPR = 32 / TS;   // lanes per score row: 2 (TS=16) or 1 (TS=32)
-  constexpr int CPL = TS / LPR;  // score columns per lane
-  const int r = lane / LPR, c0 = (lane % LPR) * CPL;
-  const int HD = D / 2;
+    const bf16* sq = ring + (it % NST) * C::STAGE;
+    const bf16* sk = sq + C::TILE;
+    const bf16* sv = sk + C::TILE;
+    const int ta = t0 + ra, tb = t0 + rb;
 
-  for (int hh = warp; hh < H; hh += WARPS) {
-    const bf16* qh = sQ + hh * TS * DP;
-    const bf16* kh = sK + hh * TS * DP;
-    const bf16* vh = sV + hh * TS * DP;
-
+    // scores: s[j] holds rows ra (0, 1) and rb (2, 3), keys 8j + 2tq + (0, 1)
+    float s[C::NT][4];
 #pragma unroll
-    for (int i = 0; i < TS / 16; ++i) {
+    for (int j = 0; j < C::NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < TS / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
+    for (int ks = 0; ks < C::KS; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, sq + (wq * 16 + (lane & 15)) * C::RS + ks * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-          wmma::load_matrix_sync(af, qh + i * 16 * DP + kk * 16, DP);
-          wmma::load_matrix_sync(bf, kh + j * 16 * DP + kk * 16, DP);
-          wmma::mma_sync(acc, af, bf, acc);
-        }
-        wmma::store_matrix_sync(sSw + i * 16 * TS + j * 16, acc, TS, wmma::mem_row_major);
+      for (int np = 0; np < C::NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, sk + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * C::RS + ks * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma16(s[2 * np], a, b[0], b[1]);
+        mma16(s[2 * np + 1], a, b[2], b[3]);
       }
     }
-    __syncwarp();
-
-    float sv[CPL];
-    float mx = -INFINITY;
+    if (C::K8) {
+      uint32_t a[2];
+      ldsm_x2(a, sq + (wq * 16 + (lane & 15)) * C::RS + C::KS * 16);
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      const int col = c0 + c;
-      const float s = sSw[r * TS + col] * scale_log2 + ((r / S) == (col / S) ? 0.f : -1e30f);
-      sv[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    if (LPR == 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) {
-      sv[c] = exp2f(sv[c] - mx);
-      sum += sv[c];
-    }
-    if (LPR == 2) sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float l = fmaxf(sum, 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) sPw[r * TS + c0 + c] = __float2bfloat16(sv[c] / l);
-    __syncwarp();
-
-#pragma unroll
-    for (int i = 0; i < TS / 16; ++i) {
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < TS / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(pf, sPw + i * 16 * TS + kk * 16, TS);
-          wmma::load_matrix_sync(vf, vh + kk * 16 * DP + j * 16, DP);
-          wmma::mma_sync(acc, pf, vf, acc);
-        }
-        wmma::store_matrix_sync(sOw + i * 16 * DP + j * 16, acc, DP, wmma::mem_row_major);
+      for (int np = 0; np < C::NT / 2; ++np) {
+        uint32_t b[2];
+        ldsm_x2(b, sk + (np * 16 + (lane & 15)) * C::RS + C::KS * 16);
+        mma8(s[2 * np], a[0], a[1], b[0]);
+        mma8(s[2 * np + 1], a[0], a[1], b[1]);
       }
     }
-    __syncwarp();
 
-    for (int idx = lane; idx < TS * HD; idx += 32) {
-      const int rr = idx / HD, cp = (idx - rr * HD) * 2;
-      const int t = t0 + rr;
-      if (t < T)
-        *reinterpret_cast<__nv_bfloat162*>(out + t * o_ld + (long long)hh * D + cp) =
-            __floats2bfloat162_rn(sOw[rr * DP + cp], sOw[rr * DP + cp + 1]);
+    // softmax over each row's keys of its own sequence, in registers
+    float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * tq + e;
+        s[j][e] = s[j][e] * scale_log2 + ((ra >> sh) == (col >> sh) ? 0.f : -1e30f);
+        s[j][2 + e] = s[j][2 + e] * scale_log2 + ((rb >> sh) == (col >> sh) ? 0.f : -1e30f);
+        mxa = fmaxf(mxa, s[j][e]);
+        mxb = fmaxf(mxb, s[j][2 + e]);
+      }
     }
-    __syncwarp();  // the next head reuses this warp's scratch
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
+      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
+    }
+    float suma = 0.f, sumb = 0.f;
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = exp2f(s[j][e] - mxa);
+        s[j][2 + e] = exp2f(s[j][2 + e] - mxb);
+        suma += s[j][e];
+        sumb += s[j][2 + e];
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      suma += __shfl_xor_sync(0xffffffffu, suma, off);
+      sumb += __shfl_xor_sync(0xffffffffu, sumb, off);
+    }
+    const float la = fmaxf(suma, 1e-30f), lb = fmaxf(sumb, 1e-30f);
+    // P normalised, then cast: key tiles 2kk and 2kk + 1 form the A operand of key step kk
+    uint32_t p[TS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TS / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[2 * kk][0] / la, s[2 * kk][1] / la);
+      p[kk][1] = pack_bf16(s[2 * kk][2] / lb, s[2 * kk][3] / lb);
+      p[kk][2] = pack_bf16(s[2 * kk + 1][0] / la, s[2 * kk + 1][1] / la);
+      p[kk][3] = pack_bf16(s[2 * kk + 1][2] / lb, s[2 * kk + 1][3] / lb);
+    }
+
+    // o = P v
+    float o[C::NO][4];
+#pragma unroll
+    for (int n = 0; n < C::NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TS / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < C::NO / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, sv + (kk * 16 + (lane & 15)) * C::RS + np * 16 + (lane >> 4) * 8);
+        mma16(o[2 * np], p[kk], b[0], b[1]);
+        mma16(o[2 * np + 1], p[kk], b[2], b[3]);
+      }
+      if (C::NO % 2) {
+        uint32_t b[2];
+        ldsm_x2_t(b, sv + (kk * 16 + (lane & 15)) * C::RS + (C::NO - 1) * 8);
+        mma16(o[C::NO - 1], p[kk], b[0], b[1]);
+      }
+    }
+
+    // stores: lanes 2i and 2i + 1 swap halves of two n-tiles, so each
+    // writes 4 consecutive columns (8 bytes)
+    bf16* oa = out + (long long)ta * o_ld + (long long)h * D;
+    bf16* ob = out + (long long)tb * o_ld + (long long)h * D;
+#pragma unroll
+    for (int np = 0; np < C::NO / 2; ++np) {
+      const float* x = o[2 * np];
+      const float* y = o[2 * np + 1];
+      const uint32_t xa = pack_bf16(x[0], x[1]), ya = pack_bf16(y[0], y[1]);
+      const uint32_t xb = pack_bf16(x[2], x[3]), yb = pack_bf16(y[2], y[3]);
+      const uint32_t ga = __shfl_xor_sync(0xffffffffu, odd ? xa : ya, 1);
+      const uint32_t gb = __shfl_xor_sync(0xffffffffu, odd ? xb : yb, 1);
+      const int col = np * 16 + (odd ? 8 + 2 * tq - 2 : 2 * tq);
+      if (ta < T)
+        *reinterpret_cast<uint2*>(oa + col) = odd ? make_uint2(ga, ya) : make_uint2(xa, ga);
+      if (tb < T)
+        *reinterpret_cast<uint2*>(ob + col) = odd ? make_uint2(gb, yb) : make_uint2(xb, gb);
+    }
+    if (C::NO % 2) {
+      const float* x = o[C::NO - 1];
+      const int col = (C::NO - 1) * 8 + 2 * tq;
+      if (ta < T) *reinterpret_cast<uint32_t*>(oa + col) = pack_bf16(x[0], x[1]);
+      if (tb < T) *reinterpret_cast<uint32_t*>(ob + col) = pack_bf16(x[2], x[3]);
+    }
+
+    group_sync();  // the stage is free for the next load
   }
 }
 
-template <int TS, int DP>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-           int H, int D, long long q_ld, long long k_ld, long long v_ld,
-           long long o_ld, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TS, DP>(H);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(packed_attn_kernel<TS, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
+template <int TS, int D, int GPC, int NST>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+           long long q_ld, long long k_ld, long long v_ld, long long o_ld, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<TS, D, GPC, NST>;
+  static int resident = 0;  // CTAs the card holds at once: the persistent grid's size
+  if (!resident) {
+    auto kern = packed_attn_kernel<TS, D, GPC, NST>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    int per_sm = 0, dev = 0, sms = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, C::THREADS, C::SMEM);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = per_sm * sms;
+  }
   const int T = B * S;
-  packed_attn_kernel<TS, DP><<<(T + TS - 1) / TS, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), T, S, H, D, q_ld,
-      k_ld, v_ld, o_ld, scale * 1.4426950408889634f);
+  const int tiles = (T + TS - 1) / TS;
+  if (tiles == 0 || H == 0) return 0;
+  packed_attn_kernel<TS, D, GPC, NST><<<tiles < resident ? tiles : resident, C::THREADS, C::SMEM,
+                                   stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), T, S, H, q_ld, k_ld, v_ld, o_ld, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+// groups a CTA and stages a ring, from a sweep on the H100 (PERF.md): at D 40
+// eight warps (four pairs at S 32) of four-stage rings, 123 KB, one CTA an SM
+// with three units in flight a group; at D 80 and 160 two-stage rings of
+// about 64 KB a CTA, three CTAs an SM
+template <int TS>
+int dispatch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+             int D, long long q_ld, long long k_ld, long long v_ld, long long o_ld,
+             float scale, cudaStream_t s) {
+  constexpr int G = 32 / TS;  // 2 at TS 16, 1 at TS 32
+  if (D == 40)
+    return launch<TS, 40, 4 * G, 4>(q, k, v, out, B, S, H, q_ld, k_ld, v_ld, o_ld, scale, s);
+  if (D == 80)
+    return launch<TS, 80, 2 * G, 2>(q, k, v, out, B, S, H, q_ld, k_ld, v_ld, o_ld, scale, s);
+  if (D == 160)
+    return launch<TS, 160, G, 2>(q, k, v, out, B, S, H, q_ld, k_ld, v_ld, o_ld, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q/k/v/out: (B, S, H*D) bf16 with token stride *_ld (elements); S in
-// {2, 4, 8, 16, 32}; D a multiple of 8 with D <= 48 or 64 < D <= 80, or
-// 144 < D <= 160 at S <= 16 (the 160-wide heads of the 1280-channel
-// motion modules; a 32-token tile of them is over the shared memory).
-extern "C" int packed_attn(const void* q, const void* k, const void* v, void* out,
-                           int B, int S, int H, int D, long long q_ld,
-                           long long k_ld, long long v_ld, long long o_ld,
-                           float scale, void* stream) {
+// q/k/v/out: (B, S, H*D) bf16 with token stride *_ld (elements, a multiple
+// of 8); S in {2, 4, 8, 16, 32}; D in {40, 80, 160}.
+extern "C" int packed_attn(const void* q, const void* k, const void* v, void* out, int B,
+                           int S, int H, int D, long long q_ld, long long k_ld,
+                           long long v_ld, long long o_ld, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int DP = (D + 15) / 16 * 16;
-  if (S == 2 || S == 4 || S == 8 || S == 16) {
-    if (DP == 48) return launch<16, 48>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
-    if (DP == 80) return launch<16, 80>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
-    if (DP == 160) return launch<16, 160>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
-  } else if (S == 32) {
-    if (DP == 48) return launch<32, 48>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
-    if (DP == 80) return launch<32, 80>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
-  }
+  if (S == 2 || S == 4 || S == 8 || S == 16)
+    return dispatch<16>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
+  if (S == 32) return dispatch<32>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -337,11 +337,17 @@ PACKED_HEAD_DIMS = (40, 80)  # the auto route's packed head widths
 
 
 def packed_kernel_takes(seq: int, head_dim: int) -> bool:
-    """Whether kernels B and E take sequences of ``seq`` tokens with heads
-    ``head_dim`` wide: D 40 or 80 at every S of ``PACKED_SEQ``, and D 160
-    (kernel F's route at the 1280-channel motion modules) at S <= 16."""
-    return seq in PACKED_SEQ and (head_dim in PACKED_HEAD_DIMS or (head_dim == 160
-                                                                   and seq <= 16))
+    """Whether kernel B takes sequences of ``seq`` tokens with heads
+    ``head_dim`` wide: D 40, 80 or 160 (kernel F's route at the 1280-channel
+    motion modules) at every S of ``PACKED_SEQ``."""
+    return seq in PACKED_SEQ and head_dim in PACKED_HEAD_DIMS + (160,)
+
+
+def packed_bwd_kernel_takes(seq: int, head_dim: int) -> bool:
+    """Whether kernel E (B's backward) takes the shape: D 40 or 80 at every S
+    of ``PACKED_SEQ``, and D 160 at S <= 16 only (a 32-token tile of
+    160-wide heads is over its shared memory)."""
+    return packed_kernel_takes(seq, head_dim) and (head_dim != 160 or seq <= 16)
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -377,7 +383,8 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          g: torch.Tensor, num_heads: int, scale: float):
     """Kernel E: (dq, dk, dv) of :func:`packed_attention` for the cotangent
     ``g`` (B, S, H*D), which is first cast to q's dtype, as the TPU route
-    does; shapes and strides as :func:`packed_attention` takes them."""
+    does; at the (S, D) of :func:`packed_bwd_kernel_takes`, strides as
+    :func:`packed_attention` takes them."""
     b, s, c = q.shape
     d = c // num_heads
     if not (q.shape == k.shape == v.shape == g.shape):
@@ -385,7 +392,7 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = g.to(q.dtype)
     if q.device.type == "cpu":
         return _packed_bwd_plain(q, k, v, g, num_heads, scale)
-    if not packed_kernel_takes(s, d) or c != num_heads * d:
+    if not packed_bwd_kernel_takes(s, d) or c != num_heads * d:
         raise ValueError(f"packed_attention_bwd: unsupported S={s}, D={d}")
     for name, x in (("q", q), ("k", k), ("v", v), ("g", g)):
         _check_merged(f"packed_attention_bwd {name}", x, d, q.device)
@@ -525,7 +532,9 @@ def forced_plan(batch: int, sq: int, sk: int, channels: int, num_heads: int,
       packable shapes (equal q/k/v, S <= 32, at least two packs), else
       "plain";
     * ``packed_flash``: "packed_flash" (kernel B as F, whose wrapper raises
-      on an (S, D) that :func:`packed_kernel_takes` refuses) on packable
+      on an (S, D) that :func:`packed_kernel_takes` refuses; its backward,
+      kernel E, raises where :func:`packed_bwd_kernel_takes` refuses, at S
+      32 with 160-wide heads) on packable
       shapes on CUDA with ``128 % S == 0``, "packed_plain" on other packable
       shapes, else "plain";
     * ``xla``: "plain".

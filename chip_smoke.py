@@ -13,11 +13,15 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    the same work (the largest of tensor-core flops, ex2 at the SFU's rate,
    and bytes): A-E at the sampling (256^2 and 512^2) and training shapes
    and D at the 160-wide L2 shape (F: kernel B
-   under ``attention_backend("packed_flash")`` at L0 and L2), C also at a
+   under ``attention_backend("packed_flash")`` at L0 and L2, and at a
+   32-frame clip of 160-wide heads), B also at S 32 and S 8 with 40-wide
+   heads, C also at a
    ragged M at each width, H at every stage-1 shape (recon steps, four-view
    test, validation orbit, testset grid) and on dense synthetic coarse tiles
    at the recon step's shape (the 0.99 clamp at the back and at the front
-   of the lists) and at bucket 2's (a cluster of ranks a coarse tile), G at the 64^2 recon shapes and on dense synthetic tiles,
+   of the lists) and at bucket 2's (a cluster of ranks a coarse tile), and
+   its forward on tiles where T falls under 1e-4 inside a block (T_final
+   gated), G at the 64^2 recon shapes and on dense synthetic tiles,
    each backward of H and G also launched twice to show it bitwise
    deterministic; then edge shapes off the main path (G against float64
    among them);
@@ -55,8 +59,8 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
 9. fields: the recon CLI again at 64^2 (kernel G's route), its timed
    full-schedule step and one loss + backward through G against plain ops.
 
-The summary lines give the step times with kernel C's and H's share of the
-profiled device time, each beside the card's name and power limit. The
+The summary lines give the step times with kernel B's, C's and H's share
+of the profiled device time, each beside the card's name and power limit. The
 line before the last is a JSON object with one row per kernel and path
 shape; the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
@@ -268,7 +272,7 @@ def _packed_case(label, b, s, c, heads, gen, backend=None):
         out = route()
         ref = A.packed_small_attention(q, k, v, heads, scale)
         torch.cuda.synchronize()
-        ms = _time_ms(route, 20)
+        ms = _time_ms(route, 100)  # enough launches that host dispatch does not set the time
     err, tol, rel, ok = _agree(out, ref)
     plain_ms = _time_ms(lambda: A.packed_small_attention(q, k, v, heads, scale), 5)
     qh, kh, vh = (x.reshape(b, s, heads, d).transpose(1, 2).contiguous() for x in (q, k, v))
@@ -420,6 +424,13 @@ def kernel_phase() -> list:
                      8192, 16, 320, 8, gen, backend="packed_flash"),
         _packed_case("L2 temporal (512, 16, 1280) h8, backend packed_flash",
                      512, 16, 1280, 8, gen, backend="packed_flash"),
+        # off the shipped paths: a 32-frame clip at the 160-wide L2 heads under
+        # packed_flash (the L2 row's 8192 tokens), 32 frames at 40-wide heads,
+        # and 8-frame sequences (the block-diagonal mask inside a 16-token tile)
+        _packed_case("L2 S32 temporal (256, 32, 1280) h8, backend packed_flash",
+                     256, 32, 1280, 8, gen, backend="packed_flash"),
+        _packed_case("S32 temporal (4096, 32, 320) h8", 4096, 32, 320, 8, gen),
+        _packed_case("S8 temporal (16384, 8, 320) h8", 16384, 8, 320, 8, gen),
         _geglu_case("L0 M=131072 C=320 I=1280", 131072, 320, 1280, gen),
         _geglu_case("L1 M=32768 C=640 I=2560", 32768, 640, 2560, gen),
         _geglu_case("L2 M=8192 C=1280 I=5120", 8192, 1280, 5120, gen),
@@ -630,7 +641,8 @@ def reference_phase() -> dict:
           f"through the plain ops {plain_counts}")
     del unet
     torch.cuda.empty_cache()
-    return dict(ok=ok, rel=rel, c_share=_share(fams, "kernel C geglu"))
+    return dict(ok=ok, rel=rel, c_share=_share(fams, "kernel C geglu"),
+                b_share=_share(fams, "kernel B packed_attn"))
 
 
 def edge_phase() -> bool:
@@ -888,7 +900,8 @@ def train_reference_phase() -> dict:
           f"kernels {counts_k} (expected {PER_TRAIN_STEP}), through the plain ops {counts_p}")
     del unet, grad_k, grad_p
     torch.cuda.empty_cache()
-    return dict(ok=ok, rel=rel, loss_rel=loss_rel, c_share=_share(fams, "kernel C geglu"))
+    return dict(ok=ok, rel=rel, loss_rel=loss_rel, c_share=_share(fams, "kernel C geglu"),
+                b_share=_share(fams, "kernel B packed_attn"))
 
 
 RECON_YAML = "configs/animate3d/motion_recon_frame_16.yaml"
@@ -907,7 +920,7 @@ RECON_STEPS = 3
 # evaluates the pairs its AABB gate and early stop leave; G every pair.
 H_FWD_OPS = (14, 12)
 H_BWD_OPS = (14, 40)
-H_PLANE_TOL, H_PLANE_REL, H_GRAD_REL = 2.0 ** -6, 1e-4, 1e-3
+H_PLANE_TOL, H_PLANE_REL, H_GRAD_REL, H_T_REL = 2.0 ** -6, 1e-4, 1e-3, 1e-3
 
 
 def _g_tiles(n_t: int, k: int, seed: int, clamp_front: bool = False):
@@ -970,6 +983,33 @@ def _h_tiles(n_ct: int, kc: int, seed: int, cs: int = 4, clamp_front: bool = Fal
     return org, f
 
 
+def _h_t_fall_tiles(n_ct: int, kc: int, seed: int, cs: int = 4):
+    """Kernel-H coarse tiles on which T falls under 1e-4 in the middle of
+    block 1 while later candidates of that block still hit
+    (tests/test_torch_raster.py::make_t_fall_fields, 8 coarse tiles a row):
+    30 wide candidates of alpha ~0.5 over the whole tile, then faint ones
+    (opacity 0.05) inside it, then from candidate 128 on opaque ones that
+    the early stop skips. T_final ends near 1e-9: far under 1e-4, far above
+    f32 underflow. → (corig, fields) as numpy float32."""
+    rng = np.random.default_rng(seed)
+    span = 16 * cs
+    t = np.arange(n_ct)
+    org = np.stack([t % 8 * span, t // 8 * span], 1).astype(np.float32)
+    f = np.zeros((n_ct, 12, kc), np.float32)
+    f[:, 0] = rng.uniform(org[:, :1] + 4, org[:, :1] + span - 4, (n_ct, kc))
+    f[:, 1] = rng.uniform(org[:, 1:] + 4, org[:, 1:] + span - 4, (n_ct, kc))
+    f[:, 2], f[:, 3], f[:, 4] = 0.2, 0.0, 0.2
+    f[:, 5] = rng.uniform(0.5, 1.0, (n_ct, kc))
+    f[:, 5, 30:128] = 0.05
+    f[:, 2, :30], f[:, 4, :30], f[:, 5, :30] = 1e-6, 1e-6, 0.5
+    f[:, 6:9] = rng.uniform(0, 1, (n_ct, 3, kc))
+    f[:, 9] = np.sort(rng.uniform(1, 5, (n_ct, kc)), axis=-1)
+    f[:, 10] = 1.0
+    f[:, 11] = 6.0
+    f[:, 11, :30] = 200.0
+    return org, f
+
+
 def _recon_state(device):
     """The recon asset: ``random_state(n=20000, radius=0.4)`` from seed 0."""
     from animate3d_tpu_torch.gaussians.state import random_state
@@ -998,12 +1038,15 @@ def _raster_fields(route: str, cams: dict, n_renders: int):
     return fields, orig
 
 
-def _composite_rows(kernel: str, label, fields, orig, gen, backward=True) -> list:
+def _composite_rows(kernel: str, label, fields, orig, gen, backward=True,
+                    t_gate=False) -> list:
     """Kernel H or G forward (and backward) on path fields against the
     plain versions. Limits: planes max |diff| <= 2^-6 (one flipped 1/255
     gate or 0.99 clamp moves a pixel by at most 1/255 T) and relative L2 <=
-    1e-4; field gradients relative L2 <= 1e-3 (sums over a tile's pixels in
-    another order, amplified by 1 / (1 - alpha) <= 100). The bound counts
+    1e-4; with ``t_gate`` also T_final (plane 5) within relative error
+    ``H_T_REL`` wherever the plain T is above 1e-30 (products in another
+    order); field gradients relative L2 <= 1e-3 (sums over a tile's pixels
+    in another order, amplified by 1 / (1 - alpha) <= 100). The bound counts
     the rows each kernel reads (H: 12, G: rows 0-10) and 6 cotangent planes."""
     from animate3d_tpu_torch.ops import rasterize as R
 
@@ -1024,10 +1067,16 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True) -> lis
     err = float((out - ref).abs().max())
     rel = float((out - ref).norm() / ref.norm())
     ok = err <= H_PLANE_TOL and rel <= H_PLANE_REL and bool(torch.isfinite(out).all())
+    t_rel = None
+    if t_gate:
+        keep = ref[:, :, 5] > 1e-30
+        t_rel = float(((out[:, :, 5] - ref[:, :, 5]).abs() / ref[:, :, 5])[keep].max())
+        ok = ok and t_rel <= H_T_REL and float(ref[:, :, 5].max()) < 1e-4
     bound, by = _bound_f32(H_FWD_OPS[0] * pairs + H_FWD_OPS[1] * live,
                            in_bytes + 4.0 * out.numel())
     res = [dict(name=f"{name}_fwd", shape=shape, keys=[(f"{name}_fwd", key)],
                 max_abs_err=err, tol=H_PLANE_TOL, rel=rel, rel_tol=H_PLANE_REL, ok=ok,
+                t_rel=t_rel,
                 pairs=pairs, live=live, ms=_time_ms(lambda: fwd(fields, orig), 10),
                 plain_ms=_time_ms(lambda: fwd_plain(fields, orig), 1),
                 library_ms=None, bound_ms=bound, bound_by=by)]
@@ -1120,11 +1169,18 @@ def composite_kernel_phase() -> list:
     d_org, d_f = (torch.from_numpy(a).cuda() for a in _h_tiles(128, 512, 6))
     rows += _composite_rows("H", f"dense synthetic coarse tiles, {R.coarse_bwd_ranks(128, 4)} "
                             "ranks a cluster", d_f, d_org, gen)
+    # T under 1e-4 inside a block with later hits in it: the early stop acts
+    # only at block boundaries, so T_final keeps falling (plane 5 gated)
+    t_org, t_f = (torch.from_numpy(a).cuda() for a in _h_t_fall_tiles(1024, 256, 7))
+    rows += _composite_rows("H", "T under 1e-4 inside a block", t_f, t_org, gen,
+                            backward=False, t_gate=True)
     print(f"[kernel] card {_smi()}")
     for r in rows:
         tol = f"(tol {r['tol']:.3e}) " if r["tol"] is not None else ""
         if "same" in r:
             tol += f"rows 10-11 zero, two launches bitwise equal {r['same']}; "
+        if r.get("t_rel") is not None:
+            tol += f"T_final rel {r['t_rel']:.3e} (tol {H_T_REL:.0e}); "
         print(f"[kernel] {r['name']:<20} {r['shape']:<64} max|d| {r['max_abs_err']:.3e} {tol}"
               f"rel L2 {r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} "
@@ -1355,7 +1411,7 @@ def recon_timing_phase(system, frames: str, per_step: dict, tag: str,
                           f"at {res}^2, 20,000 gaussians)", prof, wall_ms)
     return dict(ok=totals == expected and np.isfinite(full), per_shape=per_shape, step_s=full,
                 buckets=(t2, t4, t8), avg_s=avg, peak_gb=peak_gb, batch=batch,
-                h_bwd_share=_share(fams, "kernel H bwd"),
+                h_bwd_share=_share(fams, "kernel H bwd"), h_fwd_share=_share(fams, "kernel H fwd"),
                 h_share=_share(fams, "kernel H fwd", "kernel H bwd"))
 
 
@@ -1470,8 +1526,8 @@ def eval_phase(tmp: str, ply: str, frames: str, trial: str) -> dict:
     peak_render = torch.cuda.max_memory_allocated() / 2 ** 30
     del out, system, res
     torch.cuda.empty_cache()
-    _print_profile("[eval-profile]", f"the testset render alone ({renders} renders at "
-                   f"{TESTSET_RES}^2)", prof, render_ms)
+    fams = _print_profile("[eval-profile]", f"the testset render alone ({renders} renders "
+                          f"at {TESTSET_RES}^2)", prof, render_ms)
     print(f"[eval] testset render alone: wall {render_ms:.2f} ms (profiler on), peak memory "
           f"{peak_render:.2f} GiB")
 
@@ -1496,7 +1552,8 @@ def eval_phase(tmp: str, ply: str, frames: str, trial: str) -> dict:
     per_shape = collections.Counter(per_shape) + collections.Counter(shape_v) + \
         collections.Counter(shape_e)
     return dict(ok=ok_test and ok_val and ok_exp, per_shape=dict(per_shape), wall_s=wall,
-                render_ms=render_ms, peak_gb=peak_render)
+                render_ms=render_ms, peak_gb=peak_render,
+                h_fwd_share=_share(fams, "kernel H fwd"))
 
 
 def _fail(msg: str) -> int:
@@ -1607,6 +1664,10 @@ def main() -> int:
           f"{ref['c_share']}; in one train loss + backward: {train_ref['c_share']}; kernel H "
           f"in one full-schedule recon step: {timing['h_share']}, its backward "
           f"{timing['h_bwd_share']}; card {env['smi']}")
+    print(f"[summary] kernel B (packed attention) in one full-width UNet forward at 256^2: "
+          f"{ref['b_share']}; in one train loss + backward: {train_ref['b_share']}; kernel H "
+          f"forward in one full-schedule recon step: {timing['h_fwd_share']}, in the testset "
+          f"render: {ev['h_fwd_share']}; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",

@@ -128,15 +128,19 @@ def test_load_lpips_reads_the_jax_npz_and_is_none_without_weights(tmp_path, monk
                                                               jnp.asarray(y))), rtol=1e-4)
 
 
-@pytest.mark.parametrize("head_dim", [40, 160])
-def test_packed_flash_plain_path_matches_pallas_kernel(head_dim):
-    """``attention_backend("packed_flash")`` on a temporal site (S = 16;
-    d = 40 as at L0, 160 as at L2, L3 and mid) on the CPU takes kernel B's
-    plain version, which computes what the TPU's ``packed_temporal_flash``
-    kernel computes (its Pallas forward in interpret mode): atol 1e-5 in
-    f32. Nothing is launched."""
+@pytest.mark.parametrize("batch,seq,head_dim", [
+    pytest.param(24, 16, 40, id="40"), pytest.param(24, 16, 160, id="160"),
+    pytest.param(8, 32, 160, id="32-160")])
+def test_packed_flash_plain_path_matches_pallas_kernel(batch, seq, head_dim):
+    """``attention_backend("packed_flash")`` on a temporal site (S = 16 with
+    d = 40 as at L0, 160 as at L2, L3 and mid; S = 32 with d = 160, a
+    32-frame clip at the 1280-channel motion modules, which kernel B takes)
+    on the CPU takes kernel B's plain version, which computes what the TPU's
+    ``packed_temporal_flash`` kernel computes (its Pallas forward in
+    interpret mode): atol 1e-5 in f32. Nothing is launched."""
     rng = np.random.default_rng(5)
-    q, k, v = (rng.normal(size=(24, 16, 2 * head_dim)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(size=(batch, seq, 2 * head_dim)).astype(np.float32)
+               for _ in range(3))
     scale = head_dim ** -0.5
     ref = np.asarray(JA._packed_temporal_fwd_impl(jnp.asarray(q), jnp.asarray(k),
                                                   jnp.asarray(v), 2, scale))
@@ -150,12 +154,13 @@ def test_packed_flash_plain_path_matches_pallas_kernel(head_dim):
 
 # (batch, sq, sk, channels, heads, self-attention) of the UNet's sites at
 # 256² (the CFG batch): spatial / cross-view flash sites, text cross-attention,
-# temporal sites at L0-L3; and L2 cross-view sites at 512² (160-wide heads),
-# one of them at the CFG batch
+# temporal sites at L0-L3; L2 cross-view sites at 512² (160-wide heads),
+# one of them at the CFG batch; and an L2 temporal site of a 32-frame clip
 _SITES = [(32, 4096, 4096, 320, 8, True), (32, 1024, 1024, 640, 8, True),
           (128, 1024, 77, 320, 8, False), (8192, 16, 16, 320, 8, True),
           (2048, 16, 16, 640, 8, True), (512, 16, 16, 1280, 8, True),
-          (8, 1024, 1024, 1280, 8, True), (32, 1024, 1024, 1280, 8, True)]
+          (8, 1024, 1024, 1280, 8, True), (32, 1024, 1024, 1280, 8, True),
+          (512, 32, 32, 1280, 8, True)]
 
 
 @pytest.mark.parametrize("backend", ["xla", "flash", "packed", "packed_flash"])
@@ -191,22 +196,30 @@ def test_forced_backends_route_as_jax(backend, monkeypatch):
         if backend != "flash":
             assert TA.forced_plan(b, sq, sk, c, h, self_attn, sq == sk, False, backend) != \
                 "packed_flash"
+    if backend == "packed_flash":  # a 32-frame clip at 160-wide heads: kernel B as F
+        assert TA.forced_plan(512, 32, 32, 1280, 8, True, True, True, backend) == "packed_flash"
+        assert TA.packed_kernel_takes(32, 160)
     with pytest.raises(ValueError, match="is not one of"):
         with TA.attention_backend("pallas"):
             pass
 
 
 def test_packed_kernel_takes_the_motion_modules_head_widths():
-    """Kernels B and E take 40- and 80-wide heads at every S from 2 up to
-    32 dividing 128, and 160-wide heads at S <= 16 (the F route at the
-    1280-channel motion modules); nothing else, so the F route raises on
-    CUDA rather than taking the plain version."""
+    """Kernel B takes 40-, 80- and 160-wide heads at every S from 2 up to 32
+    dividing 128 (the F route at the 1280-channel motion modules, 32-frame
+    clips included); its backward E takes 160-wide heads at S <= 16 only.
+    Nothing else, so the F route raises on CUDA rather than taking the plain
+    version."""
     assert TA.PACKED_SEQ == tuple(s for s in range(2, 33) if 128 % s == 0)
     for s in TA.PACKED_SEQ:
-        assert TA.packed_kernel_takes(s, 40) and TA.packed_kernel_takes(s, 80)
-        assert TA.packed_kernel_takes(s, 160) == (s <= 16)
+        for d in (40, 80, 160):
+            assert TA.packed_kernel_takes(s, d), (s, d)
+        assert TA.packed_bwd_kernel_takes(s, 40) and TA.packed_bwd_kernel_takes(s, 80)
+        assert TA.packed_bwd_kernel_takes(s, 160) == (s <= 16)
+    assert TA.packed_kernel_takes(32, 160) and not TA.packed_bwd_kernel_takes(32, 160)
     for s, d in ((16, 64), (16, 128), (24, 40), (64, 40), (16, 320)):
         assert not TA.packed_kernel_takes(s, d), (s, d)
+        assert not TA.packed_bwd_kernel_takes(s, d), (s, d)
 
 
 # --- tiny drives of the evaluation entry points -----------------------------

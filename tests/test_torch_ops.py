@@ -310,6 +310,30 @@ def test_kernels_match_plain_on_cuda():
     assert_agree(out, ref)
 
 
+@pytest.mark.cuda
+def test_packed_kernel_matches_plain_at_every_shape_it_takes_on_cuda():
+    """Kernel B against its plain version at every (S, D) of
+    ``packed_kernel_takes`` (S 32 at D 160 included), 8 heads, on a batch
+    whose token count leaves a partial last tile at S < 16 (the zero-filled
+    rows), and on strided token rows (a view of a wider tensor): within 2^-6
+    of the largest output and 1e-2 relative L2 (bf16 P and output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for s in TA.PACKED_SEQ:
+        for d in (40, 80, 160):
+            assert TA.packed_kernel_takes(s, d)
+            c = 8 * d
+            wide = torch.randn((3, 37, s, c + 8), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            q, k, v = (wide[i, :, :, :c] for i in range(3))
+            out = TA.packed_attention(q, k, v, 8, d ** -0.5)
+            ref = TA.packed_small_attention(q, k, v, 8, d ** -0.5)
+            out, ref = out.float(), ref.float()
+            assert (out - ref).abs().max() <= 2 ** -6 * ref.abs().max(), (s, d)
+            assert (out - ref).norm() <= 1e-2 * ref.norm(), (s, d)
+
+
 def _to_bhsd(x, h):
     b, s, c = x.shape
     return jnp.asarray(x.reshape(b, s, h, c // h).transpose(0, 2, 1, 3))

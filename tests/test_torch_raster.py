@@ -124,6 +124,49 @@ def test_composite_fn_on_cpu_takes_plain_versions(h_case):
     assert sum(_build.launch_totals().values()) == 0
 
 
+def make_t_fall_fields(seed=7, kc=256):
+    """One coarse tile on which T falls under 1e-4 in the middle of block 1
+    while later candidates of that block still hit: 30 wide candidates of
+    alpha ~0.5 over the whole tile (T ~0.5^30 ~1e-9 after them, under 1e-4
+    after the 14th), then 98 faint ones (opacity 0.05) inside the tile, then
+    a block of opaque ones that the early stop skips. T_final ends far under
+    1e-4 but far above f32 underflow, so a per-pixel exit at 1e-4 inside the
+    block would leave it ~1e5 times too large."""
+    rng = np.random.default_rng(seed)
+    corig = np.zeros((1, 2), np.float32)
+    f = np.zeros((1, 12, kc), np.float32)
+    f[0, 0] = rng.uniform(4, EXT - 4, kc)
+    f[0, 1] = rng.uniform(4, EXT - 4, kc)
+    f[0, 2], f[0, 3], f[0, 4] = 0.2, 0.0, 0.2
+    f[0, 5] = rng.uniform(0.5, 1.0, kc)
+    f[0, 5, 30:128] = 0.05
+    f[0, 2, :30], f[0, 4, :30], f[0, 5, :30] = 1e-6, 1e-6, 0.5
+    f[0, 6:9] = rng.uniform(0, 1, (3, kc))
+    f[0, 9] = np.sort(rng.uniform(1, 5, kc))
+    f[0, 10] = 1.0
+    f[0, 11] = 6.0
+    f[0, 11, :30] = 200.0
+    return corig, f
+
+
+def test_h_plain_keeps_compositing_under_the_early_stop():
+    """Kernel H's plain forward against the Pallas kernel (interpret mode)
+    where T falls under 1e-4 inside a block: T_final (plane 5) at rtol
+    1e-4, the other planes at atol 1e-5; the next block is skipped."""
+    corig, f = make_t_fall_fields()
+    planes = np.asarray(composite_coarse_pallas(jnp.asarray(corig), jnp.asarray(f),
+                                                interpret=True))
+    t_final = planes[:, :, 5]
+    assert t_final.max() < 1e-6 and t_final.min() > 1e-12
+    out = R._composite_coarse_plain(torch.from_numpy(f), torch.from_numpy(corig)).numpy()
+    np.testing.assert_allclose(out[:, :, 5], t_final, rtol=1e-4)
+    np.testing.assert_allclose(out, planes, atol=1e-5)
+    # block 2 alone is live on the tile: the early stop skips real work
+    skipped = R._composite_coarse_plain(torch.from_numpy(f[:, :, 128:].copy()),
+                                        torch.from_numpy(corig)).numpy()
+    assert skipped[:, :, 5].min() < 0.5
+
+
 def _scene(n=300, res=128, seed=3, sh_degree=1):
     rng = np.random.default_rng(seed)
     c2w = jcam.generate_c2w(10.0, 30.0, distance=3.0)[0]
@@ -328,3 +371,22 @@ def test_h_kernel_matches_plain_on_cuda():
     assert float((g - gref).norm() / gref.norm()) <= 1e-3
     with routing.plain_ops():
         assert R.CompositeCoarseFn.apply(fc, cc, CS, 16, 1.0 / 255.0, 0.99).shape == out.shape
+
+
+@pytest.mark.cuda
+def test_h_kernel_keeps_compositing_under_the_early_stop_on_cuda():
+    """Kernel H's forward where T falls under 1e-4 inside a block
+    (:func:`make_t_fall_fields`): planes within 2^-6 and relative L2 1e-4
+    of the plain version, and T_final (plane 5) within relative error 1e-3
+    wherever the plain T is above 1e-30."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    corig, f = make_t_fall_fields()
+    fc, cc = torch.from_numpy(f).cuda(), torch.from_numpy(corig).cuda()
+    out, ref = R.composite_coarse(fc, cc), R._composite_coarse_plain(fc, cc)
+    assert float((out - ref).abs().max()) <= 2.0 ** -6
+    assert float((out - ref).norm() / ref.norm()) <= 1e-4
+    t, t_ref = out[:, :, 5], ref[:, :, 5]
+    keep = t_ref > 1e-30
+    assert bool(keep.all())
+    assert float(((t - t_ref).abs() / t_ref)[keep].max()) <= 1e-3
