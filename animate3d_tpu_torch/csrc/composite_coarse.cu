@@ -117,37 +117,12 @@ __device__ __forceinline__ bool tile_hit(const float* xr, const float* yr, const
 
 // The fine tile's hit list, shared by the forward and the backward: the
 // candidates k < kc whose AABB meets the fine tile at (tx0, ty0), front to
-// back, in hl[0, n) (ballot + prefix); gpre[g] counts the hits before
-// 32-candidate group g, gpre[ngrp] = n. Called by all PX threads; returns
-// after a barrier, with hl and gpre visible to every thread.
+// back, in hl[0, n) (build_list); gpre[g] counts the hits before
+// 32-candidate group g, gpre[ngrp] = n.
 __device__ __forceinline__ void build_hit_list(const float* xr, const float* yr,
                                                const float* rr, int kc, float tx0, float ty0,
                                                int* hl, unsigned* gbal, int* gpre) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ngrp = (kc + 31) / 32;  // <= 32
-  for (int k0 = 0; k0 < kc; k0 += PX) {
-    const int k = k0 + tid;
-    const unsigned bal = __ballot_sync(0xffffffffu, k < kc && tile_hit(xr, yr, rr, k, tx0, ty0));
-    if (lane == 0 && k < kc) gbal[k >> 5] = bal;
-  }
-  __syncthreads();
-  if (tid < 32) {
-    const int c = tid < ngrp ? __popc(gbal[tid]) : 0;
-    int incl = c;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int n = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += n;
-    }
-    if (tid < ngrp) gpre[tid] = incl - c;
-    if (tid == 31) gpre[ngrp] = incl;
-  }
-  __syncthreads();
-  for (int k = tid; k < kc; k += PX) {
-    const unsigned bal = gbal[k >> 5];
-    if ((bal >> (k & 31)) & 1u) hl[gpre[k >> 5] + __popc(bal & ((1u << (k & 31)) - 1u))] = k;
-  }
-  __syncthreads();
+  build_list(kc, [&](int k) { return tile_hit(xr, yr, rr, k, tx0, ty0); }, hl, gbal, gpre);
 }
 
 // hits of the list before block b's first candidate (blocks of kb = min(kc, 128))
@@ -158,7 +133,6 @@ __device__ __forceinline__ int hits_before(const int* gpre, int ngrp, int kb, in
 // A listed candidate's record in the forward: rows 0-10, then the skip
 // threshold (48 bytes, three 16-byte shared loads).
 constexpr int REC = 12;
-constexpr float SKIP_MARGIN = 1e-3f;
 
 // The power under which a candidate's alpha is below alpha_min for certain:
 // log(alpha_min / opacity) less a margin far above the rounding of logf,
@@ -365,8 +339,9 @@ __global__ void __launch_bounds__(PX, 2)
         }
         for (int q = n - 1; q >= 0; --q) {
           float c[NGRAD];
-          const bool live = cand_grads(true, f, kc, hl[j0 + q], gx, gy, alpha_min, alpha_max,
-                                       tk[q * PX + tid], gv, S, c);
+          const int k = hl[j0 + q];
+          const bool live = alpha_grads(cand_alpha(f, kc, k, gx, gy, alpha_min, alpha_max), f,
+                                        kc, k, alpha_max, tk[q * PX + tid], gv, S, c);
           warp_sum(c, live);
           if (lane == 0) {
 #pragma unroll

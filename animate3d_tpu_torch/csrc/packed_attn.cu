@@ -46,82 +46,17 @@
 //     softmax (row max and sum over the quad by shuffles) and the
 //     normalisation run there, and the bf16 P is repacked in registers as
 //     the A operand of the PV product; the output goes from its
-//     accumulators straight to global memory (8-byte stores after one
-//     shuffle), so no score, P or O passes through shared memory.
+//     accumulators straight to global memory, an n-tile pair at a time
+//     (8-byte stores after one shuffle), so no score, P or O passes
+//     through shared memory.
+// The copies, fragment loads, products, softmax and stores are shared with
+// the backward, kernel E (packed_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "packed_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-// d += a b: m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                      uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b: m16n8k8
-__device__ __forceinline__ void mma8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using namespace packed;
 
 // GPC groups a CTA (a group: one warp, or a warp pair at TS 32); each
 // group has its own NST-stage ring of one head's q, k, v tile
@@ -135,8 +70,6 @@ struct Cfg {
   static constexpr int STAGE = 3 * TILE;
   static constexpr size_t SMEM = (size_t)GPC * NST * STAGE * sizeof(bf16);
   static constexpr int NT = TS / 8;   // score n-tiles (keys)
-  static constexpr int KS = D / 16;   // k16 steps of QK^T
-  static constexpr bool K8 = D % 16 != 0;  // plus one k8 step (D 40)
   static constexpr int NO = D / 8;    // output n-tiles
 };
 
@@ -189,9 +122,8 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
     }
   };
 
-  const int g = lane >> 2, tq = lane & 3;
-  const int ra = wq * 16 + g, rb = ra + 8;  // this thread's two query rows in the tile
-  const bool odd = tq & 1;
+  const int tq = lane & 3;
+  const int ra = wq * 16 + (lane >> 2), rb = ra + 8;  // this thread's two query rows in the tile
 
 #pragma unroll 1
   for (int j = 0; j < NST - 1; ++j) {  // the ring's first NST - 1 units
@@ -217,68 +149,10 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
 
     // scores: s[j] holds rows ra (0, 1) and rb (2, 3), keys 8j + 2tq + (0, 1)
     float s[C::NT][4];
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < C::KS; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, sq + (wq * 16 + (lane & 15)) * C::RS + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < C::NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, sk + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * C::RS + ks * 16 +
-                       ((lane >> 3) & 1) * 8);
-        mma16(s[2 * np], a, b[0], b[1]);
-        mma16(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    if (C::K8) {
-      uint32_t a[2];
-      ldsm_x2(a, sq + (wq * 16 + (lane & 15)) * C::RS + C::KS * 16);
-#pragma unroll
-      for (int np = 0; np < C::NT / 2; ++np) {
-        uint32_t b[2];
-        ldsm_x2(b, sk + (np * 16 + (lane & 15)) * C::RS + C::KS * 16);
-        mma8(s[2 * np], a[0], a[1], b[0]);
-        mma8(s[2 * np + 1], a[0], a[1], b[1]);
-      }
-    }
-
+    mma_abt<TS, D, C::RS>(s, sq, sk, wq * 16, lane);
     // softmax over each row's keys of its own sequence, in registers
-    float mxa = -INFINITY, mxb = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * tq + e;
-        s[j][e] = s[j][e] * scale_log2 + ((ra >> sh) == (col >> sh) ? 0.f : -1e30f);
-        s[j][2 + e] = s[j][2 + e] * scale_log2 + ((rb >> sh) == (col >> sh) ? 0.f : -1e30f);
-        mxa = fmaxf(mxa, s[j][e]);
-        mxb = fmaxf(mxb, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
-      mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
-    }
-    float suma = 0.f, sumb = 0.f;
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = exp2f(s[j][e] - mxa);
-        s[j][2 + e] = exp2f(s[j][2 + e] - mxb);
-        suma += s[j][e];
-        sumb += s[j][2 + e];
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      suma += __shfl_xor_sync(0xffffffffu, suma, off);
-      sumb += __shfl_xor_sync(0xffffffffu, sumb, off);
-    }
-    const float la = fmaxf(suma, 1e-30f), lb = fmaxf(sumb, 1e-30f);
+    float la, lb;
+    softmax_rows<C::NT>(s, ra, rb, sh, tq, scale_log2, la, lb);
     // P normalised, then cast: key tiles 2kk and 2kk + 1 form the A operand of key step kk
     uint32_t p[TS / 16][4];
 #pragma unroll
@@ -289,49 +163,20 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
       p[kk][3] = pack_bf16(s[2 * kk + 1][2] / lb, s[2 * kk + 1][3] / lb);
     }
 
-    // o = P v
-    float o[C::NO][4];
-#pragma unroll
-    for (int n = 0; n < C::NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < TS / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < C::NO / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, sv + (kk * 16 + (lane & 15)) * C::RS + np * 16 + (lane >> 4) * 8);
-        mma16(o[2 * np], p[kk], b[0], b[1]);
-        mma16(o[2 * np + 1], p[kk], b[2], b[3]);
-      }
-      if (C::NO % 2) {
-        uint32_t b[2];
-        ldsm_x2_t(b, sv + (kk * 16 + (lane & 15)) * C::RS + (C::NO - 1) * 8);
-        mma16(o[C::NO - 1], p[kk], b[0], b[1]);
-      }
-    }
-
-    // stores: lanes 2i and 2i + 1 swap halves of two n-tiles, so each
-    // writes 4 consecutive columns (8 bytes)
+    // o = P v, an n-tile pair at a time, from its accumulators straight to
+    // global memory
     bf16* oa = out + (long long)ta * o_ld + (long long)h * D;
     bf16* ob = out + (long long)tb * o_ld + (long long)h * D;
 #pragma unroll
     for (int np = 0; np < C::NO / 2; ++np) {
-      const float* x = o[2 * np];
-      const float* y = o[2 * np + 1];
-      const uint32_t xa = pack_bf16(x[0], x[1]), ya = pack_bf16(y[0], y[1]);
-      const uint32_t xb = pack_bf16(x[2], x[3]), yb = pack_bf16(y[2], y[3]);
-      const uint32_t ga = __shfl_xor_sync(0xffffffffu, odd ? xa : ya, 1);
-      const uint32_t gb = __shfl_xor_sync(0xffffffffu, odd ? xb : yb, 1);
-      const int col = np * 16 + (odd ? 8 + 2 * tq - 2 : 2 * tq);
-      if (ta < T)
-        *reinterpret_cast<uint2*>(oa + col) = odd ? make_uint2(ga, ya) : make_uint2(xa, ga);
-      if (tb < T)
-        *reinterpret_cast<uint2*>(ob + col) = odd ? make_uint2(gb, yb) : make_uint2(xb, gb);
+      float o[2][4] = {};
+      mma_ab_pair<TS, C::RS, false>(o, p, sv, 2 * np, lane);
+      store_pair(oa, ob, ta < T, tb < T, o[0], o[1], np * 16, tq, 1.f);
     }
     if (C::NO % 2) {
-      const float* x = o[C::NO - 1];
-      const int col = (C::NO - 1) * 8 + 2 * tq;
-      if (ta < T) *reinterpret_cast<uint32_t*>(oa + col) = pack_bf16(x[0], x[1]);
-      if (tb < T) *reinterpret_cast<uint32_t*>(ob + col) = pack_bf16(x[2], x[3]);
+      float o[2][4] = {};
+      mma_ab_pair<TS, C::RS, true>(o, p, sv, C::NO - 1, lane);
+      store_one(oa, ob, ta < T, tb < T, o[0], (C::NO - 1) * 8, tq, 1.f);
     }
 
     group_sync();  // the stage is free for the next load

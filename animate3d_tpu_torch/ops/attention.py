@@ -337,17 +337,18 @@ PACKED_HEAD_DIMS = (40, 80)  # the auto route's packed head widths
 
 
 def packed_kernel_takes(seq: int, head_dim: int) -> bool:
-    """Whether kernel B takes sequences of ``seq`` tokens with heads
-    ``head_dim`` wide: D 40, 80 or 160 (kernel F's route at the 1280-channel
-    motion modules) at every S of ``PACKED_SEQ``."""
+    """Whether kernel B and its backward E take sequences of ``seq`` tokens
+    with heads ``head_dim`` wide: D 40, 80 or 160 (kernel F's route at the
+    1280-channel motion modules) at every S of ``PACKED_SEQ``."""
     return seq in PACKED_SEQ and head_dim in PACKED_HEAD_DIMS + (160,)
 
 
-def packed_bwd_kernel_takes(seq: int, head_dim: int) -> bool:
-    """Whether kernel E (B's backward) takes the shape: D 40 or 80 at every S
-    of ``PACKED_SEQ``, and D 160 at S <= 16 only (a 32-token tile of
-    160-wide heads is over its shared memory)."""
-    return packed_kernel_takes(seq, head_dim) and (head_dim != 160 or seq <= 16)
+def check_packed_shape(name: str, seq: int, channels: int, num_heads: int) -> None:
+    """Raise where kernels B and E do not take (S, D): the (S, D) of
+    :func:`packed_kernel_takes`, channels a whole number of heads."""
+    d = channels // num_heads
+    if not packed_kernel_takes(seq, d) or channels != num_heads * d:
+        raise ValueError(f"{name}: unsupported S={seq}, D={d}")
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -363,8 +364,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("packed_attention: q/k/v shapes differ")
     if q.device.type == "cpu":
         return packed_small_attention(q, k, v, num_heads, scale)
-    if not packed_kernel_takes(s, d) or c != num_heads * d:
-        raise ValueError(f"packed_attention: unsupported S={s}, D={d}")
+    check_packed_shape("packed_attention", s, c, num_heads)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_merged(f"packed_attention {name}", x, d, q.device)
         if x.stride(0) != s * x.stride(1):
@@ -383,8 +383,9 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          g: torch.Tensor, num_heads: int, scale: float):
     """Kernel E: (dq, dk, dv) of :func:`packed_attention` for the cotangent
     ``g`` (B, S, H*D), which is first cast to q's dtype, as the TPU route
-    does; at the (S, D) of :func:`packed_bwd_kernel_takes`, strides as
-    :func:`packed_attention` takes them."""
+    does; at the (S, D) of :func:`packed_kernel_takes`, strides as
+    :func:`packed_attention` takes them. No atomics: two launches on the
+    same inputs are bitwise equal."""
     b, s, c = q.shape
     d = c // num_heads
     if not (q.shape == k.shape == v.shape == g.shape):
@@ -392,8 +393,7 @@ def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = g.to(q.dtype)
     if q.device.type == "cpu":
         return _packed_bwd_plain(q, k, v, g, num_heads, scale)
-    if not packed_bwd_kernel_takes(s, d) or c != num_heads * d:
-        raise ValueError(f"packed_attention_bwd: unsupported S={s}, D={d}")
+    check_packed_shape("packed_attention_bwd", s, c, num_heads)
     for name, x in (("q", q), ("k", k), ("v", v), ("g", g)):
         _check_merged(f"packed_attention_bwd {name}", x, d, q.device)
         if x.stride(0) != s * x.stride(1):
@@ -531,12 +531,10 @@ def forced_plan(batch: int, sq: int, sk: int, channels: int, num_heads: int,
     * ``packed``: "packed_plain" (B's plain version, the XLA packed path) on
       packable shapes (equal q/k/v, S <= 32, at least two packs), else
       "plain";
-    * ``packed_flash``: "packed_flash" (kernel B as F, whose wrapper raises
-      on an (S, D) that :func:`packed_kernel_takes` refuses; its backward,
-      kernel E, raises where :func:`packed_bwd_kernel_takes` refuses, at S
-      32 with 160-wide heads) on packable
-      shapes on CUDA with ``128 % S == 0``, "packed_plain" on other packable
-      shapes, else "plain";
+    * ``packed_flash``: "packed_flash" (kernel B as F, backward kernel E,
+      whose wrappers raise on an (S, D) that :func:`packed_kernel_takes`
+      refuses) on packable shapes on CUDA with ``128 % S == 0``,
+      "packed_plain" on other packable shapes, else "plain";
     * ``xla``: "plain".
 
     Where the JAX package runs a kernel, so does the port on CUDA, or it

@@ -21,10 +21,11 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    at the recon step's shape (the 0.99 clamp at the back and at the front
    of the lists) and at bucket 2's (a cluster of ranks a coarse tile), and
    its forward on tiles where T falls under 1e-4 inside a block (T_final
-   gated), G at the 64^2 recon shapes and on dense synthetic tiles,
-   each backward of H and G also launched twice to show it bitwise
-   deterministic; then edge shapes off the main path (G against float64
-   among them);
+   gated), G at the 64^2 recon shapes and on dense synthetic tiles (with
+   the share of candidates its backward culls), E also at S 32 with 160-
+   and 40-wide heads, at S 8 and on a ragged S 2 batch, each backward of
+   E, H and G also launched twice to show it bitwise deterministic; then
+   edge shapes off the main path (G against float64 among them);
 3. end to end: the sampling CLI at full width (SD1.5 widths, 256x256,
    4 views x 16 frames, 2 DDIM steps, random weights from a seed) with every
    launch counter set to 0 just before and read just after; then again at
@@ -39,9 +40,10 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    after, then one loss + backward through the kernels against the same
    step through the plain versions;
 6. packed_flash: one L0 and one L2 temporal attention (40- and 160-wide
-   heads) forward and backward under ``attention_backend("packed_flash")``
-   (kernel B as F's route, E) against the plain versions, counters zeroed
-   before and read after;
+   heads) and one of a 32-frame clip at the 160-wide heads, forward and
+   backward under ``attention_backend("packed_flash")`` (kernel B as F's
+   route, E) against the plain versions, counters zeroed before and read
+   after;
 7. recon: stage-1 motion reconstruction through its CLI with
    configs/animate3d/motion_recon_frame_16.yaml as it is (4 views x 16
    frames at 256^2, 20,000 gaussians of a seeded random asset, frames
@@ -59,11 +61,11 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
 9. fields: the recon CLI again at 64^2 (kernel G's route), its timed
    full-schedule step and one loss + backward through G against plain ops.
 
-The summary lines give the step times with kernel B's, C's and H's share
-of the profiled device time, each beside the card's name and power limit. The
-line before the last is a JSON object with one row per kernel and path
-shape; the last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+The summary lines give the step times with kernel B's, C's, E's, G's and
+H's share of the profiled device time, each beside the card's name and
+power limit. The line before the last is a JSON object with one row per
+kernel and path shape; the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -81,6 +83,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+PEAK_F64_FLOPS = 34e12  # H100 SXM f64 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 PEAK_EX2 = 3.9e12  # H100 SXM SFU: 16 ex2 a clock an SM x 132 SMs x 1.83 GHz
 
@@ -118,10 +121,11 @@ PER_TRAIN_STEP = _per(flash_fwd=40, packed_attn=40, geglu=74, flash_bwd_dq=19,
 # once forward and once backward
 PER_RECON_STEP = _per(composite_coarse_fwd=1, composite_coarse_bwd=1)
 PER_FIELDS_STEP = _per(composite_fields_fwd=1, composite_fields_bwd=1)
-# one motion-module temporal attention at L0 (40-wide heads) and one at L2
-# (160-wide) under attention_backend("packed_flash"), forward and backward:
-# kernel B as F's route, then E, at each
-PER_PACKED_FLASH = _per(packed_temporal=2, packed_attn_bwd=2)
+# one motion-module temporal attention at L0 (40-wide heads), one at L2
+# (160-wide) and one of a 32-frame clip at L2 under
+# attention_backend("packed_flash"), forward and backward: kernel B as F's
+# route, then E, at each
+PER_PACKED_FLASH = _per(packed_temporal=3, packed_attn_bwd=3)
 SOURCES = {
     "flash_fwd": ("animate3d_tpu_torch/csrc/flash_fwd.cu",
                   "animate3d_tpu/ops/attention.py:234"),
@@ -372,6 +376,8 @@ def _flash_bwd_case(label, b, s, c, heads, kv_group, gen):
 
 
 def _packed_bwd_case(label, b, s, c, heads, gen):
+    """Kernel E against its plain version, and launched twice: bitwise
+    equal (no atomics)."""
     from animate3d_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
@@ -382,14 +388,16 @@ def _packed_bwd_case(label, b, s, c, heads, gen):
     args = (q, k, v, g, heads, scale)
     grads = A.packed_attention_bwd(*args)
     refs = A._packed_bwd_plain(*args)
+    same = all(torch.equal(x, y) for x, y in zip(grads, A.packed_attention_bwd(*args)))
     torch.cuda.synchronize()
     err, tol, rel, ok = _agree_all(grads, refs)
-    ms = _time_ms(lambda: A.packed_attention_bwd(*args), 20)
+    ok = ok and same
+    ms = _time_ms(lambda: A.packed_attention_bwd(*args), 100)
     plain_ms = _time_ms(lambda: A._packed_bwd_plain(*args), 5)
     lib_ms = _sdpa_bwd_ms(q, k, v, g, heads, scale, 1, 20)
     bound, by, term = _bound_ms(10.0 * b * heads * s * s * d, 2.0 * 7 * b * s * c)
     return dict(name="packed_attn_bwd", shape=label, keys=[("packed_attn_bwd", (b, s, c))],
-                max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, tol=tol, rel=rel, ok=ok, same=same, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
 
 
@@ -470,10 +478,21 @@ def kernel_phase() -> list:
                          8192, 16, 320, 8, gen),
         _packed_bwd_case("L2 temporal (512, 16, 1280) h8, backend packed_flash",
                          512, 16, 1280, 8, gen),
+        # and at B's rows off the shipped paths: the 32-frame clip at the
+        # 160-wide heads (phase 6's third site), 32 frames at 40-wide heads,
+        # 8-frame sequences, and a ragged batch of 2-frame sequences whose
+        # last 16-token tile is partial
+        _packed_bwd_case("L2 S32 temporal (256, 32, 1280) h8, backend packed_flash",
+                         256, 32, 1280, 8, gen),
+        _packed_bwd_case("S32 temporal (4096, 32, 320) h8", 4096, 32, 320, 8, gen),
+        _packed_bwd_case("S8 temporal (16384, 8, 320) h8", 16384, 8, 320, 8, gen),
+        _packed_bwd_case("ragged S2 temporal (4099, 2, 320) h8", 4099, 2, 320, 8, gen),
     ]
     print(f"[kernel] card {_smi()}")
     for r in rows:
         extra = f" lse_err {r['lse_err']:.3e}" if "lse_err" in r else ""
+        if "same" in r:
+            extra += f" two launches bitwise equal {r['same']}"
         print(f"[kernel] {r['name']:<15} {r['shape']:<58} max|d| {r['max_abs_err']:.3e} "
               f"(tol {r['tol']:.3e}) rel L2 {r['rel']:.3e} (tol {REL_L2_TOL:.0e}){extra} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
@@ -667,7 +686,7 @@ def edge_phase() -> bool:
     cases.append(("flash strided q, Sk=197 h1 d80 kv_group 2",
                   A.flash_attention(q, k, v, 1, 0.1, 2)[0], A._flash_plain(q, k, v, 1, 0.1, 2)[0]))
     for b, s_, c, h in ((13, 8, 80, 2), (7, 32, 640, 8), (13, 8, 320, 2),
-                         (37, 4, 80, 2), (70, 2, 640, 8)):
+                         (37, 4, 80, 2), (70, 2, 640, 8), (5, 32, 1280, 8)):
         q, k, v = rnd(b, s_, c), rnd(b, s_, c), rnd(b, s_, c)
         cases.append((f"packed B={b} S={s_} C={c} h{h}", A.packed_attention(q, k, v, h, 0.15),
                       A.packed_small_attention(q, k, v, h, 0.15)))
@@ -691,7 +710,7 @@ def edge_phase() -> bool:
     flash_bwd("flash bwd kv_group 2 (4, 512, 320) h8", rnd(4, 512, 320), rnd(2, 512, 320),
               rnd(2, 512, 320), 8, 40 ** -0.5, 2)
     for b, s_, c, h in ((13, 8, 80, 2), (7, 32, 640, 8), (13, 8, 320, 2),
-                         (37, 4, 80, 2), (70, 2, 640, 8)):
+                         (37, 4, 80, 2), (70, 2, 640, 8), (5, 32, 1280, 8)):
         args = (rnd(b, s_, c), rnd(b, s_, c), rnd(b, s_, c), rnd(b, s_, c), h, 0.15)
         cases.append((f"packed bwd B={b} S={s_} C={c} h{h}", A.packed_attention_bwd(*args),
                       A._packed_bwd_plain(*args)))
@@ -716,7 +735,7 @@ def _g_front_clamp_edge() -> bool:
     from animate3d_tpu_torch.ops import rasterize as R
 
     ok = True
-    for k in (32, 256):
+    for k in (32, 37, 256):  # 37: K not a multiple of 4 (the backward's scalar field loads)
         org, f = (torch.from_numpy(a).cuda() for a in _g_tiles(8, k, 20 + k, clamp_front=True))
         cot = torch.randn((8, 8, 256), generator=torch.Generator(device="cuda").manual_seed(k),
                           device="cuda") * 1e-2
@@ -901,7 +920,8 @@ def train_reference_phase() -> dict:
     del unet, grad_k, grad_p
     torch.cuda.empty_cache()
     return dict(ok=ok, rel=rel, loss_rel=loss_rel, c_share=_share(fams, "kernel C geglu"),
-                b_share=_share(fams, "kernel B packed_attn"))
+                b_share=_share(fams, "kernel B packed_attn"),
+                e_share=_share(fams, "kernel E packed_attn_bwd"))
 
 
 RECON_YAML = "configs/animate3d/motion_recon_frame_16.yaml"
@@ -917,9 +937,15 @@ RECON_STEPS = 3
 # dw, dalpha, suffix, the 10 gradient terms). The backward's function needs
 # alpha once a pair: the kernels' second and third evaluations (block
 # recompute, reverse walk) are their own strategy and are not counted. H
-# evaluates the pairs its AABB gate and early stop leave; G every pair.
+# evaluates the pairs its AABB gate and early stop leave; G's forward every
+# pair; G's backward the pairs its exact cull keeps (a warp's 32 pixels
+# times the candidates the warp marks), after one cull test for each
+# (tile, candidate) and one for each (warp, listed candidate), each about
+# G_CULL_F64_OPS f64 operations (rect_dead: the conic's determinant and
+# eigenvalue, the distance to the rectangle, the rounding term, the log).
 H_FWD_OPS = (14, 12)
 H_BWD_OPS = (14, 40)
+G_CULL_F64_OPS = 60
 H_PLANE_TOL, H_PLANE_REL, H_GRAD_REL, H_T_REL = 2.0 ** -6, 1e-4, 1e-3, 1e-3
 
 
@@ -1047,7 +1073,17 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True,
     ``H_T_REL`` wherever the plain T is above 1e-30 (products in another
     order); field gradients relative L2 <= 1e-3 (sums over a tile's pixels
     in another order, amplified by 1 / (1 - alpha) <= 100). The bound counts
-    the rows each kernel reads (H: 12, G: rows 0-10) and 6 cotangent planes."""
+    the rows each kernel reads (H: 12, G: rows 0-10) and 6 cotangent planes.
+    G's backward counts the work its function needs (``H_BWD_OPS`` on the
+    pairs the exact cull keeps, ``G_CULL_F64_OPS`` a cull test), the
+    counts and the printed shares of (tile, candidate) and (warp,
+    candidate) pairs culled taken from the cull's torch mirror
+    (``_fields_tile_dead``); ``tpu_bound_ms`` keeps the earlier count (14
+    operations on every pair the TPU kernel evaluates) for comparison. G's
+    gradient rows are also gated on their zeros: a (tile, candidate) row of
+    the kernel's gradient is zero exactly where the plain version's is, so
+    a live candidate that the kernel's cull dropped fails the row even
+    where its share of the relative L2 is small."""
     from animate3d_tpu_torch.ops import rasterize as R
 
     n, _, k = fields.shape
@@ -1090,20 +1126,33 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True,
         ok = (rel <= H_GRAD_REL and bool(torch.isfinite(g).all()) and same
               and float(g[:, 10:].abs().max()) == 0)
         # planes 0-5 of the cotangent (r, g, b, alpha, depth, T_final)
-        bound, by = _bound_f32(H_BWD_OPS[0] * pairs + H_BWD_OPS[1] * live,
-                               in_bytes + 4.0 * (cot.numel() * 6 // 8 + g.numel()))
+        bwd_bytes = in_bytes + 4.0 * (cot.numel() * 6 // 8 + g.numel())
+        bound, by = _bound_f32(H_BWD_OPS[0] * pairs + H_BWD_OPS[1] * live, bwd_bytes)
+        culled = kept = tpu_bound = zeros_same = None
+        if kernel == "G":
+            tile_dead = R._fields_tile_dead(fields, orig)  # (T, K)
+            marked = ~tile_dead[:, None] & ~R._fields_tile_dead(fields, orig, strip=2)
+            culled = (float(tile_dead.float().mean()), 1.0 - float(marked.float().mean()))
+            kept = 32 * int(marked.sum())  # a warp's 32 pixels a marked candidate
+            tests = tile_dead.numel() + marked.shape[1] * int((~tile_dead).sum())
+            tpu_bound = bound
+            bound, by = _bound_f32(H_BWD_OPS[0] * kept + H_BWD_OPS[1] * live, bwd_bytes,
+                                   f64_ops=G_CULL_F64_OPS * tests)
+            zeros_same = bool(torch.equal(g[:, :10].ne(0).any(1), gref[:, :10].ne(0).any(1)))
+            ok = ok and zeros_same
         res.append(dict(
             name=f"{name}_bwd", shape=shape, keys=[(f"{name}_bwd", key)],
             max_abs_err=float((g - gref).abs().max()), tol=None, rel=rel, rel_tol=H_GRAD_REL,
-            ok=ok, same=same, pairs=pairs, live=live,
-            ms=_time_ms(lambda: bwd(fields, orig, cot), 5),
+            ok=ok, same=same, pairs=pairs, live=live, culled=culled, kept=kept,
+            zeros_same=zeros_same, tpu_bound_ms=tpu_bound,
+            ms=_time_ms(lambda: bwd(fields, orig, cot), 20),
             plain_ms=_time_ms(lambda: bwd_plain(fields, orig, cot), 1),
             library_ms=None, bound_ms=bound, bound_by=by))
     return res
 
 
-def _bound_f32(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def _bound_f32(ops: float, nbytes: float, f64_ops: float = 0.0):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS + f64_ops / PEAK_F64_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1181,6 +1230,11 @@ def composite_kernel_phase() -> list:
             tol += f"rows 10-11 zero, two launches bitwise equal {r['same']}; "
         if r.get("t_rel") is not None:
             tol += f"T_final rel {r['t_rel']:.3e} (tol {H_T_REL:.0e}); "
+        if r.get("culled") is not None:
+            tol += (f"zero rows as plain {r['zeros_same']}; candidates culled (by the "
+                    f"cull's torch mirror) a tile {r['culled'][0]:.4f}, a warp "
+                    f"{r['culled'][1]:.4f}, {r['kept']} pairs kept; bound at the TPU "
+                    f"kernel's count {r['tpu_bound_ms']:.4f}; ")
         print(f"[kernel] {r['name']:<20} {r['shape']:<64} max|d| {r['max_abs_err']:.3e} {tol}"
               f"rel L2 {r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} "
@@ -1191,13 +1245,13 @@ def composite_kernel_phase() -> list:
 
 
 def packed_flash_phase() -> dict:
-    """Kernel F's route on the main path's widths: two motion-module
+    """Kernel F's route on the main path's widths: three motion-module
     temporal attentions, L0 (8192 sequences of 16 frames, 320 channels, 8
-    heads of 40) and L2 (512 sequences, 1280 channels, 8 heads of 160),
-    bf16, each forward and backward under attention_backend
-    ("packed_flash"), counters zeroed just before and read just after
-    (kernel B as F forward, E backward), against the same layers on the
-    plain versions."""
+    heads of 40), L2 (512 sequences, 1280 channels, 8 heads of 160) and a
+    32-frame clip at L2 (256 sequences of 32 frames), bf16, each forward
+    and backward under attention_backend("packed_flash"), counters zeroed
+    just before and read just after (kernel B as F forward, E backward),
+    against the same layers on the plain versions."""
     from animate3d_tpu_torch.models.attention_layers import TemporalSelfAttention
     from animate3d_tpu_torch.ops import _build, routing
     from animate3d_tpu_torch.ops.attention import attention_backend
@@ -1205,9 +1259,9 @@ def packed_flash_phase() -> dict:
     torch.manual_seed(7)
     gen = torch.Generator(device="cuda").manual_seed(7)
     sites = []
-    for b, c in ((8192, 320), (512, 1280)):
+    for b, s, c in ((8192, 16, 320), (512, 16, 1280), (256, 32, 1280)):
         layer = TemporalSelfAttention(c, 8).to("cuda", torch.bfloat16)
-        sites.append((layer, torch.randn((b, 16, c), generator=gen, device="cuda")
+        sites.append((layer, torch.randn((b, s, c), generator=gen, device="cuda")
                       .to(torch.bfloat16)))
 
     def run():
@@ -1412,7 +1466,9 @@ def recon_timing_phase(system, frames: str, per_step: dict, tag: str,
     return dict(ok=totals == expected and np.isfinite(full), per_shape=per_shape, step_s=full,
                 buckets=(t2, t4, t8), avg_s=avg, peak_gb=peak_gb, batch=batch,
                 h_bwd_share=_share(fams, "kernel H bwd"), h_fwd_share=_share(fams, "kernel H fwd"),
-                h_share=_share(fams, "kernel H fwd", "kernel H bwd"))
+                h_share=_share(fams, "kernel H fwd", "kernel H bwd"),
+                g_bwd_share=_share(fams, "kernel G bwd"),
+                g_share=_share(fams, "kernel G fwd", "kernel G bwd"))
 
 
 def recon_reference_phase(system, batch, per_step: dict, tag: str) -> dict:
@@ -1668,6 +1724,9 @@ def main() -> int:
           f"{ref['b_share']}; in one train loss + backward: {train_ref['b_share']}; kernel H "
           f"forward in one full-schedule recon step: {timing['h_fwd_share']}, in the testset "
           f"render: {ev['h_fwd_share']}; card {env['smi']}")
+    print(f"[summary] kernel E (packed attention backward) in one train loss + backward: "
+          f"{train_ref['e_share']}; kernel G in one {FIELDS_RES}^2 recon step: "
+          f"{f_timing['g_share']}, its backward {f_timing['g_bwd_share']}; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",

@@ -189,37 +189,71 @@ def test_forced_backends_route_as_jax(backend, monkeypatch):
                     jax_route = "plain"
         mine = TA.forced_plan(b, sq, sk, c, h, self_attn, sq == sk, True, backend)
         assert mine == jax_route, (backend, b, sq, sk, c)
-        if mine == "packed_flash":
+        if mine == "packed_flash":  # kernel B forward, kernel E backward: neither raises
             assert TA.packed_kernel_takes(sq, c // h), (sq, c, h)
+            TA.check_packed_shape("packed_attention", sq, c, h)
+            TA.check_packed_shape("packed_attention_bwd", sq, c, h)
         if mine == "flash":  # kernels A and D take it: the wrapper does not raise
             assert TA.flash_kernel_takes(c // h), (sq, c, h)
         if backend != "flash":
             assert TA.forced_plan(b, sq, sk, c, h, self_attn, sq == sk, False, backend) != \
                 "packed_flash"
-    if backend == "packed_flash":  # a 32-frame clip at 160-wide heads: kernel B as F
+    if backend == "packed_flash":  # a 32-frame clip at 160-wide heads: kernel B as F, then E
         assert TA.forced_plan(512, 32, 32, 1280, 8, True, True, True, backend) == "packed_flash"
         assert TA.packed_kernel_takes(32, 160)
+        TA.check_packed_shape("packed_attention_bwd", 32, 1280, 8)
+        with pytest.raises(ValueError, match="unsupported S=24, D=160"):
+            TA.check_packed_shape("packed_attention_bwd", 24, 1280, 8)
     with pytest.raises(ValueError, match="is not one of"):
         with TA.attention_backend("pallas"):
             pass
 
 
 def test_packed_kernel_takes_the_motion_modules_head_widths():
-    """Kernel B takes 40-, 80- and 160-wide heads at every S from 2 up to 32
-    dividing 128 (the F route at the 1280-channel motion modules, 32-frame
-    clips included); its backward E takes 160-wide heads at S <= 16 only.
-    Nothing else, so the F route raises on CUDA rather than taking the plain
-    version."""
+    """Kernel B and its backward E take 40-, 80- and 160-wide heads at every
+    S from 2 up to 32 dividing 128 (the F route at the 1280-channel motion
+    modules, 32-frame clips included): one rule, ``packed_kernel_takes``,
+    for both. Nothing else, so the F route raises on CUDA rather than taking
+    the plain version."""
     assert TA.PACKED_SEQ == tuple(s for s in range(2, 33) if 128 % s == 0)
     for s in TA.PACKED_SEQ:
         for d in (40, 80, 160):
             assert TA.packed_kernel_takes(s, d), (s, d)
-        assert TA.packed_bwd_kernel_takes(s, 40) and TA.packed_bwd_kernel_takes(s, 80)
-        assert TA.packed_bwd_kernel_takes(s, 160) == (s <= 16)
-    assert TA.packed_kernel_takes(32, 160) and not TA.packed_bwd_kernel_takes(32, 160)
+            for name in ("packed_attention", "packed_attention_bwd"):
+                TA.check_packed_shape(name, s, 8 * d, 8)
+    assert not hasattr(TA, "packed_bwd_kernel_takes")
     for s, d in ((16, 64), (16, 128), (24, 40), (64, 40), (16, 320)):
         assert not TA.packed_kernel_takes(s, d), (s, d)
-        assert not TA.packed_bwd_kernel_takes(s, d), (s, d)
+        with pytest.raises(ValueError, match="packed_attention_bwd: unsupported"):
+            TA.check_packed_shape("packed_attention_bwd", s, 8 * d, 8)
+
+
+@pytest.mark.parametrize("head_dim", [40, 160])
+def test_packed_bwd_plain_at_32_frames_matches_jax_vjp(head_dim):
+    """Kernel E's plain version at S 32 (a 32-frame clip at 40- and
+    160-wide heads, the shape E takes since its redesign) against
+    ``jax.vjp`` of ``packed_temporal_flash``, whose backward is XLA's
+    recompute of the packed attention: directly, and through
+    ``PackedAttentionFn`` under ``attention_backend("packed_flash")`` (the
+    CPU takes the plain versions). f32 at "highest" precision, atol 1e-5."""
+    rng = np.random.default_rng(9 + head_dim)
+    b, s, h = 8, 32, 2
+    q, k, v, g = (rng.normal(size=(b, s, h * head_dim)).astype(np.float32) for _ in range(4))
+    scale = head_dim ** -0.5
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda *a: JA.packed_temporal_flash(*a, h, scale),
+                         *(jnp.asarray(x) for x in (q, k, v)))
+        ref = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got = TA._packed_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, g)), h, scale)
+    for x, r in zip(got, ref):
+        np.testing.assert_allclose(x.numpy(), r, atol=1e-5)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    _build.reset_launches()
+    with TA.attention_backend("packed_flash"):
+        out = TA.multi_head_attention(*leaves, h, self_attention=True)
+    for x, r in zip(torch.autograd.grad(out, leaves, torch.from_numpy(g)), ref):
+        np.testing.assert_allclose(x.numpy(), r, atol=1e-5)
+    assert sum(_build.launch_totals().values()) == 0
 
 
 # --- tiny drives of the evaluation entry points -----------------------------

@@ -328,6 +328,86 @@ def test_system_step_on_the_fields_route_matches_jax():
                                    err_msg=name)
 
 
+def _route_fields(res):
+    """Kernel G's inputs as the fields route builds them: a seeded
+    ``random_state`` asset (2,000 gaussians) projected and binned by the
+    port through two views at ``res``²."""
+    from animate3d_tpu_torch.gaussians.state import random_state
+
+    st = random_state(2000, radius=0.4, generator=torch.Generator().manual_seed(0))
+    cams = fixed_view_cameras(azimuths_deg=(0.0, 120.0), height=res, width=res,
+                              total_frame=1)
+    b, n = 2, st.num_points
+    with torch.no_grad():
+        fields, orig, _, _ = R.tile_fields(
+            st.xyz.expand(b, n, 3), st.get_scaling().expand(b, n, 3),
+            st.get_rotation().expand(b, n, 4), st.get_opacity().reshape(-1),
+            gs_cameras_from_batch(cams).index(torch.arange(b)),
+            R.RasterConfig(height=res, width=res), shs=st.get_features())
+    return fields, orig
+
+
+def _dense_fields_with_non_pd_conics():
+    """:func:`make_fields` at K 256 with every 7th candidate's conic made
+    indefinite (b² > a c) and every 11th's negative definite, all opaque and
+    shallow: the power rule must keep them."""
+    org, f = make_fields(3, 256)
+    f[:, 3, ::7] = 2.0 * np.sqrt(f[:, 2, ::7] * f[:, 4, ::7])
+    f[:, 2:5, ::7] *= 0.01  # shallow, so e^power stays finite where power > 0
+    f[:, 2:5, ::11] *= -0.01
+    f[:, 5, ::7] = 1.0
+    f[:, 5, ::11] = 1.0
+    return torch.from_numpy(f), torch.from_numpy(org)
+
+
+@pytest.mark.parametrize("case", ["route-64", "dense"])
+def test_g_cull_drops_only_candidates_dead_at_every_pixel(case):
+    """Kernel G backward's cull (``_fields_tile_dead``, the plain mirror of
+    ``rect_dead``): on the fields route's own fields at 64² and on dense
+    random tiles with non-positive-definite conics, no culled (tile,
+    candidate) is live at any pixel under the plain ``_block_alpha``, nor
+    any candidate culled for a warp's 16 x 2 pixels at any of them; most
+    of the route's candidates are culled (82%, and 0.02% kept though dead
+    at every pixel); the non-PD conics are kept by the power rule. And the
+    plain backward with the culled candidates' ``ok`` set to 0 equals
+    (bitwise) the plain backward of the original fields, whose culled rows
+    are zero."""
+    if case == "dense":
+        fields, orig = _dense_fields_with_non_pd_conics()
+    else:
+        fields, orig = _route_fields(64)
+    dead = R._fields_tile_dead(fields, orig)
+    _, _, gx, gy = R._pixel_grid(orig, 16, 1)
+    alpha, _ = R._block_alpha(fields, gx, gy, 1.0 / 255.0, 0.99)
+    live = (alpha > 0)[:, 0].any(1)  # (T, K): live at some pixel of the tile
+    assert live.any() and dead.any()
+    assert not (live & dead).any()
+    share = float(dead.float().mean())
+    # each warp's 16 x 2 pixels: culled there wherever culled in the tile, and more
+    strips = R._fields_tile_dead(fields, orig, strip=2)
+    assert strips.shape == (fields.shape[0], 8, fields.shape[2])
+    assert not ((alpha > 0)[:, 0].unflatten(1, (8, 32)).any(2) & strips).any()
+    assert (strips | ~dead[:, None]).all()
+    assert float(strips.float().mean()) > share
+    if case == "dense":
+        f = fields.numpy()
+        kept = (f[:, 10] > 0) & (f[:, 5] >= 1.0 / 255.0)
+        assert not dead.numpy()[:, ::7][kept[:, ::7]].any()
+        assert not dead.numpy()[:, ::11][kept[:, ::11]].any()
+        assert share > 0.05, share
+    else:  # most candidates culled, and nearly every one kept is live somewhere
+        assert share > 0.5, share
+        assert float((~dead & ~live).float().mean()) < 0.01
+    cot = torch.from_numpy(
+        (np.random.default_rng(6).normal(size=(fields.shape[0], 8, 256)) * 1e-2)
+        .astype(np.float32))
+    culled = fields.clone()
+    culled[:, 10][dead] = 0.0
+    g = R._composite_fields_bwd_plain(fields, orig, cot)
+    assert torch.equal(R._composite_fields_bwd_plain(culled, orig, cot), g)
+    assert not g[:, :10].permute(0, 2, 1)[dead].any()
+
+
 def test_g_wrapper_rejects_what_the_kernel_does_not_take():
     f = torch.zeros((2, 12, 1152))
     with pytest.raises(ValueError, match="K=1152"):

@@ -454,7 +454,8 @@ def test_packed_fn_plain_grads_match_autograd():
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_cuda():
     """Kernels D and E against their plain backward versions on the card
-    (bf16; 2^-6 of the largest gradient and 1e-2 relative L2)."""
+    (bf16; 2^-6 of the largest gradient and 1e-2 relative L2); E at every
+    (S, D) of ``PACKED_SEQ`` x (40, 80, 160), a ragged batch included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -481,3 +482,14 @@ def test_backward_kernels_match_plain_on_cuda():
     args = (rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640), rnd(512, 16, 640),
             8, 80 ** -0.5)
     assert_agree(TA.packed_attention_bwd(*args), TA._packed_bwd_plain(*args))
+    # kernel E at every (S, D) it takes, S 32 x D 160 included, on a batch
+    # that fills whole tiles and on a ragged one (the last 16-token tile
+    # partial where S < 16); two launches bitwise equal (no atomics)
+    for s in TA.PACKED_SEQ:
+        for d in (40, 80, 160):
+            for b in (512 // s, 37):
+                args = tuple(rnd(b, s, 8 * d) for _ in range(4)) + (8, d ** -0.5)
+                grads = TA.packed_attention_bwd(*args)
+                assert_agree(grads, TA._packed_bwd_plain(*args))
+                again = TA.packed_attention_bwd(*args)
+                assert all(torch.equal(x, y) for x, y in zip(grads, again)), (s, d, b)
