@@ -3,7 +3,8 @@
 // one candidate with its gates, one candidate's 10 field-gradient terms in
 // the backward's reverse walk, the front-to-back list of a tile's
 // candidates that pass a test (ballot and prefix), and the exact cull of a
-// candidate for a tile or a warp's pixels from its conic (rect_dead).
+// candidate for a tile or a warp's pixels from its conic (rect_dead, split
+// into the candidate's own bound and its test on one rectangle).
 //
 // Candidate fields sit in shared memory as rows of stride kc: 0 x, 1 y,
 // 2-4 conic (a, b, c), 5 opacity, 6-8 rgb, 9 depth, 10 ok. expf (not
@@ -129,22 +130,20 @@ __device__ __forceinline__ void build_list(int kc, Keep keep, int* hl, unsigned*
 // logf, expf and the product o e.
 constexpr float SKIP_MARGIN = 1e-3f;
 
-// Whether candidate k's alpha is provably under alpha_min (so not live) at
-// every pixel centre (x0 + 0 .. nx - 1, y0 + 0 .. ny - 1) of a rectangle:
-// a tile, or the 16 x 2 pixels of one warp:
-//   * ok <= 0;
-//   * or opacity < alpha_min (alpha_min > 0): where power <= 0, e <= 1, so
-//     raw = o e <= o;
-//   * or the conic (a, b, c) is positive definite and the largest power
-//     over the rectangle, bounded by -1/2 lambda_min dist^2 (dist: from the
-//     candidate's centre to the rectangle) plus a bound on the float
-//     evaluation's rounding (1e-5 of the terms' magnitudes, many times the
-//     few ulps of cand_power), lies under log(alpha_min / opacity) less
-//     SKIP_MARGIN. lambda_min = det / lambda_max in double (a c and b^2
-//     exact there), shaded down by 1e-9.
-// A conic that is not positive definite, and anything NaN, is kept.
-__device__ __forceinline__ bool rect_dead(const float* f, int kc, int k, float x0, float y0,
-                                          int nx, int ny, float alpha_min) {
+// What of rect_dead's test depends on candidate k alone: lmin (below) and
+// thr = log(alpha_min / opacity) - SKIP_MARGIN, or thr = -inf where no
+// rectangle can drop the candidate (alpha_min <= 0, a conic that is not
+// positive definite, anything NaN).
+struct CullBound {
+  double lmin, thr;
+};
+
+// Whether candidate k is dead at every pixel (ok <= 0, or opacity under
+// alpha_min > 0); else its CullBound in cb.
+__device__ __forceinline__ bool cull_bound(const float* f, int kc, int k, float alpha_min,
+                                           CullBound& cb) {
+  cb.lmin = 0.0;
+  cb.thr = -INFINITY;
   if (!(f[10 * kc + k] > 0.f)) return true;
   if (!(alpha_min > 0.f)) return false;
   const float o = f[5 * kc + k];
@@ -153,7 +152,20 @@ __device__ __forceinline__ bool rect_dead(const float* f, int kc, int k, float x
   const double det = a * c - b * b;
   if (!(a > 0.0 && c > 0.0 && det > 0.0)) return false;
   const double lmax = 0.5 * (a + c) + sqrt(0.25 * (a - c) * (a - c) + b * b);
-  const double lmin = det / lmax * (1.0 - 1e-9);
+  cb.lmin = det / lmax * (1.0 - 1e-9);
+  cb.thr = (double)logf(alpha_min / o) - (double)SKIP_MARGIN;
+  return false;
+}
+
+// Whether candidate k, of CullBound cb, is not live at any pixel centre
+// (x0 + 0 .. nx - 1, y0 + 0 .. ny - 1) of a rectangle: its largest power
+// there, bounded by -1/2 lmin dist^2 (dist: from the candidate's centre to
+// the rectangle) plus a bound on the float evaluation's rounding (1e-5 of
+// the terms' magnitudes, many times the few ulps of cand_power), lies
+// under thr. False wherever thr is -inf, and where anything is NaN.
+__device__ __forceinline__ bool rect_beyond(const CullBound& cb, const float* f, int kc, int k,
+                                            float x0, float y0, int nx, int ny) {
+  const double a = f[2 * kc + k], b = f[3 * kc + k], c = f[4 * kc + k];
   // dx = x - gx over gx in [x0, x0 + nx - 1]: [dx0, dx1]; dy likewise
   const double dx0 = (double)f[k] - ((double)x0 + (nx - 1)), dx1 = (double)f[k] - x0;
   const double dy0 = (double)f[kc + k] - ((double)y0 + (ny - 1)), dy1 = (double)f[kc + k] - y0;
@@ -161,8 +173,24 @@ __device__ __forceinline__ bool rect_dead(const float* f, int kc, int k, float x
   const double ey = dy0 > 0.0 ? dy0 : (dy1 < 0.0 ? -dy1 : 0.0);
   const double mx = fmax(fabs(dx0), fabs(dx1)), my = fmax(fabs(dy0), fabs(dy1));
   const double err = 1e-5 * (a * mx * mx + c * my * my + 2.0 * fabs(b) * mx * my);
-  const double pmax = -0.5 * lmin * (ex * ex + ey * ey) + err;
-  return pmax < (double)logf(alpha_min / o) - (double)SKIP_MARGIN;
+  const double pmax = -0.5 * cb.lmin * (ex * ex + ey * ey) + err;
+  return pmax < cb.thr;
+}
+
+// Whether candidate k's alpha is provably under alpha_min (so not live) at
+// every pixel centre of a rectangle (a tile, or a warp's pixels):
+//   * ok <= 0;
+//   * or opacity < alpha_min (alpha_min > 0): where power <= 0, e <= 1, so
+//     raw = o e <= o;
+//   * or the conic (a, b, c) is positive definite and rect_beyond holds:
+//     lambda_min = det / lambda_max in double (a c and b^2 exact there),
+//     shaded down by 1e-9, and the threshold log(alpha_min / opacity) less
+//     SKIP_MARGIN.
+// A conic that is not positive definite, and anything NaN, is kept.
+__device__ __forceinline__ bool rect_dead(const float* f, int kc, int k, float x0, float y0,
+                                          int nx, int ny, float alpha_min) {
+  CullBound cb;
+  return cull_bound(f, kc, k, alpha_min, cb) || rect_beyond(cb, f, kc, k, x0, y0, nx, ny);
 }
 
 // Sums c over the warp's 32 pixels into every lane by shuffles, skipped

@@ -20,23 +20,37 @@
 //
 // Design. The TPU puts K on lanes (log-step prefix products over a 256 x K
 // VMEM scratch). Here one thread owns one pixel and walks the candidates;
-// one CTA of 256 threads owns one tile and keeps its fields (rows 0-10) in
-// shared memory (11 KB at K = 256).
-//   forward: one pass front to back.
+// one CTA of 256 threads owns one tile and keeps its fields (rows 0-10,
+// 16-byte loads all in flight: load_rows) in shared memory (11 KB at K =
+// 256). Both directions first cull exactly: each candidate is tested once
+// for the tile (rect_dead, composite_common.cuh): not ok, opacity under
+// alpha_min, or a positive-definite conic whose largest power over the
+// tile's pixel rectangle lies under log(alpha_min / opacity) less a
+// margin; such a candidate is provably not live at any pixel. The others
+// are listed front to back by ballot and prefix (build_list), and each
+// warp marks, per sub-block of SB = 32 listed candidates, those that can
+// be live at its own 16 x 2 pixels (the same test on its rectangle, one
+// bit a candidate). On the recon asset at 64^2, where 0.5% of the (pixel,
+// candidate) pairs are live, a tile lists 40 of its 256 candidates on
+// average and a warp marks 9; the densest warp of the 8-render bucket
+// marks 133 (squarer 8 x 4 blocks mark 6.4 on average but 156 at the
+// densest warp, which sets a small grid's time: PERF.md). A candidate that
+// is not walked for a pixel is not live there, and every walked one goes
+// through the float operations of the walk over all K candidates in the
+// same order, so planes and gradient are the bits of that walk. Each walk
+// takes two candidates a step: their alphas are independent chains that
+// overlap, while T (and S) take them in turn.
+//   forward: the tile's pass keeps each listed candidate's CullBound (its
+//     lambda_min and threshold, in double), so a warp's marks need no
+//     square root, division or log; the listed candidates are copied in
+//     list order as 48-byte records (three 16-byte loads a candidate in
+//     the walk, no index to follow: H's forward does the same); then one
+//     pass over the warp's marked candidates, marking each sub-block as it
+//     goes. 28 KB of shared memory at K = 256.
 //   backward: the CTA writes its tile's (12, K) gradient block once: no
-//     atomics, the result is deterministic. (0) Each candidate is tested
-//     once for the tile (rect_dead, composite_common.cuh): not ok, opacity
-//     under alpha_min, or a positive-definite conic whose largest power over
-//     the tile's pixel rectangle lies under log(alpha_min / opacity) less a
-//     margin; such a candidate is provably not live at any pixel, so its
-//     gradient rows are zero. The others are listed front to back by
-//     ballot and prefix (build_list), and each warp marks, per sub-block of
-//     SB = 32 listed candidates, those that can be live at its own 16 x 2
-//     pixels (rect_dead again, one bit a candidate). On the recon asset at 64^2,
-//     where 0.5% of the (pixel, candidate) pairs are live, a tile lists 40
-//     of its 256 candidates on average and a warp marks 9 (PERF.md).
-//     (1) A forward pass over the warp's marked candidates keeps each
-//     pixel's transmittance at the start of every sub-block (shared
+//     atomics, the result is deterministic; the unlisted candidates' rows
+//     are zero. (1) A forward pass over the warp's marked candidates keeps
+//     each pixel's transmittance at the start of every sub-block (shared
 //     memory), and T before every candidate of the last sub-block; (2) back
 //     to front, each earlier sub-block's T before every marked candidate is
 //     recomputed from its checkpoint into shared memory (32 x 256 f32 = 32
@@ -47,24 +61,14 @@
 //     gradient terms are summed over the warp (spread_sum: the butterfly's
 //     pairs and tree in 12 shuffles, not 50) and across the 8 warps in
 //     shared memory, in a fixed order, the terms of a warp's unmarked
-//     candidates zero. Each pass takes two candidates a step: their alphas
-//     (and their warp sums) are independent chains that overlap, while T
-//     and S take them in turn, which matters where a tile's warps are few
-//     (1.3x at 128 tiles). Every walked candidate goes through the float
-//     operations of the parent design's walk over all K candidates, in the
-//     same order, and a candidate that is not walked for a pixel is not
-//     live there (it changed no T and no S, and its terms were zero): the
-//     gradient is the same bits. 63 KB of shared memory at K = 256: three
-//     CTAs an SM.
+//     candidates zero. 63 KB of shared memory at K = 256: three CTAs an SM.
 //
-// Bound on the H100: the TPU kernel evaluates every (pixel, candidate)
-// pair (about 14 f32 operations, plus 12 forward / 40 backward where alpha
-// is live), so at the recon shapes the forward's least time for that work
-// is set by the operations, not the bytes (fields read once, planes
-// written once). The forward's walk is sequential per thread over all K
-// candidates. The backward's culled pairs are provably dead, so it owes
-// only the listed ones; what holds it is a grid of one CTA a tile, whose
-// time at a small grid is that of its densest tile (PERF.md).
+// Bound on the H100: the culled pairs are provably dead, so each direction
+// owes the kept ones: 14 f32 operations a kept (pixel, candidate) pair, 12
+// more forward / 40 backward where alpha is live, and the cull tests in
+// f64; the bytes are the fields read once and the planes (and gradient)
+// written once. What holds both is a grid of one CTA a tile, whose time at
+// a small grid is that of its densest warp's walk (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,32 +81,114 @@ namespace {
 using namespace composite;
 
 constexpr int NROWS = 11;  // rows read by the kernels: 0-10
-constexpr int SB = 32;     // candidates per recomputed sub-block of the backward
+constexpr int SB = 32;     // listed candidates a sub-block: one warp ballot of marks
 constexpr int MAX_K = 1024;
+
+// Rows 0-10 of one tile's fields (src, rows of K) into shared memory f4:
+// 16-byte loads, all in flight together, where K % 4 == 0 (loading 4 a
+// thread at a time cost the backward 4-5%: PERF.md).
+__device__ __forceinline__ void load_rows(float4* f4, const float* src, int K, int tid) {
+  if (K % 4 == 0) {
+    constexpr int MAXV = (NROWS * MAX_K / 4 + PX - 1) / PX;
+    const int n4 = NROWS * K / 4;
+    float4 v[MAXV];
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i)
+      if (tid + i * PX < n4) v[i] = reinterpret_cast<const float4*>(src)[tid + i * PX];
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i)
+      if (tid + i * PX < n4) f4[tid + i * PX] = v[i];
+  } else {
+    float* f = reinterpret_cast<float*>(f4);
+    for (int i = tid; i < NROWS * K; i += PX) f[i] = src[i];
+  }
+}
+
+// Candidate j's record: its fields, rows 0-10 and a zero, as 12 floats.
+__device__ __forceinline__ void load_record(const float4* rec, int j, float (&c)[NFIELD]) {
+#pragma unroll
+  for (int q = 0; q < NFIELD / 4; ++q) {
+    const float4 x = rec[j * (NFIELD / 4) + q];
+    c[4 * q] = x.x;
+    c[4 * q + 1] = x.y;
+    c[4 * q + 2] = x.z;
+    c[4 * q + 3] = x.w;
+  }
+}
 
 __global__ void __launch_bounds__(PX)
     composite_fields_fwd_kernel(const float* __restrict__ origins,
                                 const float* __restrict__ fields, float* __restrict__ out,
                                 int K, float alpha_min, float alpha_max) {
-  extern __shared__ float f[];  // NROWS * K
-  const int ti = blockIdx.x, tid = threadIdx.x;
-  const float* src = fields + (size_t)ti * NFIELD * K;
-  for (int i = tid; i < NROWS * K; i += PX) f[i] = src[i];
-  const float gx = (float)(tid % TILE) + origins[2 * ti];
-  const float gy = (float)(tid / TILE) + origins[2 * ti + 1];
+  extern __shared__ float4 smem4[];
+  const int ngrp = (K + 31) / 32;
+  float4* rec = smem4;  // K * 3: the listed candidates' records, list order
+  CullBound* bnd = reinterpret_cast<CullBound*>(rec + 3 * K);  // K: by candidate
+  float4* f4 = reinterpret_cast<float4*>(bnd + K);             // NROWS * K floats
+  const float* f = reinterpret_cast<const float*>(f4);
+  int* hl = reinterpret_cast<int*>(f4) + NROWS * K;       // K: the tile's list
+  unsigned* gbal = reinterpret_cast<unsigned*>(hl + K);  // ngrp: listed bits
+  int* gpre = reinterpret_cast<int*>(gbal + ngrp);       // ngrp + 1
+  const int ti = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_rows(f4, fields + (size_t)ti * NFIELD * K, K, tid);
+  const float tx0 = origins[2 * ti], ty0 = origins[2 * ti + 1];
+  const float gx = (float)(tid % TILE) + tx0;
+  const float gy = (float)(tid / TILE) + ty0;
   __syncthreads();
+  // the candidates that can be live somewhere in the tile, front to back,
+  // each with its CullBound for the warps' marks
+  build_list(
+      K,
+      [&](int k) {
+        CullBound cb;
+        if (cull_bound(f, K, k, alpha_min, cb) || rect_beyond(cb, f, K, k, tx0, ty0, TILE, TILE))
+          return false;
+        bnd[k] = cb;
+        return true;
+      },
+      hl, gbal, gpre);
+  const int n = gpre[ngrp];
+  for (int i = tid; i < n * NFIELD; i += PX) {
+    const int j = i / NFIELD, r = i - j * NFIELD;
+    reinterpret_cast<float*>(rec)[i] = r < NROWS ? f[r * K + hl[j]] : 0.f;
+  }
+  __syncthreads();
+  const float wy0 = ty0 + (float)(2 * warp);
 
   float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, cd = 0.f, ca = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const Alpha a = cand_alpha(f, K, k, gx, gy, alpha_min, alpha_max);
+  // a candidate at this pixel: the float operations of the walk over all K
+  // candidates, in its order
+  auto add = [&](const Alpha& a, const float (&c)[NFIELD]) {
     if (a.alpha > 0.f) {
       const float w = a.alpha * T;
-      cr += w * f[6 * K + k];
-      cg += w * f[7 * K + k];
-      cb += w * f[8 * K + k];
-      cd += w * f[9 * K + k];
+      cr += w * c[6];
+      cg += w * c[7];
+      cb += w * c[8];
+      cd += w * c[9];
       ca += w;
       T *= 1.f - a.alpha;
+    }
+  };
+  // each 32 listed candidates: this warp's marks (the bound of each from
+  // the tile's pass), then the marked ones front to back, two a step:
+  // their alphas are independent; T and the sums take them in turn
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    unsigned mk = __ballot_sync(
+        0xffffffffu, j < n && !rect_beyond(bnd[hl[j]], f, K, hl[j], tx0, wy0, TILE, 2));
+    while (mk) {
+      const int ja = __ffs(mk) - 1;
+      mk &= mk - 1;
+      const bool two = mk != 0;
+      const int jb = two ? __ffs(mk) - 1 : ja;
+      mk &= mk - 1;
+      float c0[NFIELD], c1[NFIELD];
+      load_record(rec, j0 + ja, c0);
+      load_record(rec, j0 + jb, c1);
+      const Alpha aa = cand_alpha(c0, 1, 0, gx, gy, alpha_min, alpha_max);
+      const Alpha ab = cand_alpha(c1, 1, 0, gx, gy, alpha_min, alpha_max);
+      add(aa, c0);
+      if (two) add(ab, c1);
     }
   }
   float* o = out + (size_t)ti * 8 * PX + tid;
@@ -158,20 +244,7 @@ __global__ void __launch_bounds__(PX)
   int* gpre = reinterpret_cast<int*>(gbal + ngrp);                // ngrp + 1
   const int ti = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* src = fields + (size_t)ti * NFIELD * K;
-  if (K % 4 == 0) {  // rows 0-10 as 16-byte loads, all in flight together
-    constexpr int MAXV = (NROWS * MAX_K / 4 + PX - 1) / PX;
-    const int n4 = NROWS * K / 4;
-    float4 v[MAXV];
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i)
-      if (tid + i * PX < n4) v[i] = reinterpret_cast<const float4*>(src)[tid + i * PX];
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i)
-      if (tid + i * PX < n4) smem4[tid + i * PX] = v[i];
-  } else {
-    for (int i = tid; i < NROWS * K; i += PX) f[i] = src[i];
-  }
+  load_rows(smem4, fields + (size_t)ti * NFIELD * K, K, tid);
   const float tx0 = origins[2 * ti], ty0 = origins[2 * ti + 1];
   const float gx = (float)(tid % TILE) + tx0;
   const float gy = (float)(tid / TILE) + ty0;
@@ -255,7 +328,11 @@ __global__ void __launch_bounds__(PX)
   }
 }
 
-size_t fwd_smem(int K) { return (size_t)NROWS * K * sizeof(float); }
+size_t fwd_smem(int K) {
+  const size_t ngrp = (K + 31) / 32;
+  return (size_t)K * (NFIELD + NROWS) * sizeof(float) + (size_t)K * sizeof(CullBound) +
+         (K + 2 * ngrp + 1) * sizeof(int);
+}
 
 size_t bwd_smem(int K) {
   const size_t msb = (K + SB - 1) / SB, ngrp = (K + 31) / 32;

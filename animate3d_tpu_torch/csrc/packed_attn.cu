@@ -236,12 +236,13 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 }  // namespace
 
 // q/k/v/out: (B, S, H*D) bf16 with token stride *_ld (elements, a multiple
-// of 8); S in {2, 4, 8, 16, 32}; D in {40, 80, 160}.
+// of 8); S in {1, 2, 4, 8, 16, 32} (at S 1 the softmax is the constant 1:
+// out is v's bits); D in {40, 80, 160}.
 extern "C" int packed_attn(const void* q, const void* k, const void* v, void* out, int B,
                            int S, int H, int D, long long q_ld, long long k_ld,
                            long long v_ld, long long o_ld, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S == 2 || S == 4 || S == 8 || S == 16)
+  if (S == 1 || S == 2 || S == 4 || S == 8 || S == 16)
     return dispatch<16>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
   if (S == 32) return dispatch<32>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -11,7 +11,7 @@
 // normalised P = softmax(q k^T * scale) in f32 (scale after the dot, exp2
 // form, row sum floored at 1e-30), P_bf16 = bf16(P), o = P_bf16 v recomputed
 // in f32, Delta = rowsum(g o) from that recomputed o (not from the stored
-// bf16 output), dS = bf16(P (g v^T - Delta)), and
+// bf16 output), dS = bf16(P (g v^T - Delta)) (exactly 0 at S 1), and
 //   dq = dS k * scale,   dk = dS^T q * scale,   dv = P_bf16^T g.
 // The cotangent g arrives already in q's dtype, as the TPU route downcasts
 // it before its kernel. Layout: the merged (B, S, H*D) q/k/v/g; heads are
@@ -291,6 +291,11 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
       ds[kk][2] = pack_bf16(y[0] * (dy[0] - da), y[1] * (dy[1] - da));
       ds[kk][3] = pack_bf16(y[2] * (dy[2] - db), y[3] * (dy[3] - db));
     }
+    if (S == 1) {  // a one-token softmax is the constant 1: dS is exactly 0 (g v^T -
+                   // Delta holds only the rounding of one sum taken in two orders)
+#pragma unroll
+      for (int kk = 0; kk < TS / 16; ++kk) ds[kk][0] = ds[kk][1] = ds[kk][2] = ds[kk][3] = 0u;
+    }
     // this warp's rows of P_bf16 and dS into the group's slabs
 #pragma unroll
     for (int kk = 0; kk < TS / 16; ++kk) {
@@ -373,14 +378,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* g, void* d
 }  // namespace
 
 // q/k/v/g: (B, S, H*D) bf16 with token stride *_ld (elements, a multiple of
-// 8); dq/dk/dv: (B, S, H*D) bf16 with token stride d_ld. S in {2, 4, 8, 16,
-// 32}; D in {40, 80, 160}.
+// 8); dq/dk/dv: (B, S, H*D) bf16 with token stride d_ld. S in {1, 2, 4, 8,
+// 16, 32} (at S 1: dq = dk = 0, dv = g); D in {40, 80, 160}.
 extern "C" int packed_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                                void* dq, void* dk, void* dv, int B, int S, int H, int D,
                                long long q_ld, long long k_ld, long long v_ld, long long g_ld,
                                long long d_ld, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S == 2 || S == 4 || S == 8 || S == 16)
+  if (S == 1 || S == 2 || S == 4 || S == 8 || S == 16)
     return dispatch<16>(q, k, v, g, dq, dk, dv, B, S, H, D, q_ld, k_ld, v_ld, g_ld, d_ld, scale,
                         s);
   if (S == 32)

@@ -149,9 +149,10 @@ def _flash_bwd_plain(q, k, v, out, lse, do, num_heads: int, scale: float, kv_gro
 def _packed_bwd_plain(q, k, v, g, num_heads: int, scale: float):
     """Plain version of kernel E with its rounding points: normalised P in
     f32, P_bf16 = P in the input dtype, o = P_bf16 v recomputed in f32,
-    Delta = rowsum(g o) from that o, dS rounded to the input dtype; dq =
-    dS k * scale, dk = dS^T q * scale, dv = P_bf16^T g. The cotangent is
-    first cast to q's dtype. The f32 score-sized tensors are B*H*S^2 (S <=
+    Delta = rowsum(g o) from that o, dS rounded to the input dtype (exactly
+    0 at S 1, where dP - Delta holds only the rounding of one sum taken in
+    two orders); dq = dS k * scale, dk = dS^T q * scale, dv = P_bf16^T g.
+    The cotangent is first cast to q's dtype. The f32 score-sized tensors are B*H*S^2 (S <=
     32), far smaller than q, so batches are not sliced."""
     f32, dt = torch.float32, q.dtype
     qh, kh, vh, gh = (_split_heads(x.to(dt), num_heads).to(f32) for x in (q, k, v, g))
@@ -160,6 +161,8 @@ def _packed_bwd_plain(q, k, v, g, num_heads: int, scale: float):
     o = torch.matmul(pc, vh)
     delta = (gh * o).sum(-1, keepdim=True)
     ds = (p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta)).to(dt).to(f32)
+    if q.shape[1] == 1:  # a one-token softmax is the constant 1: dS is exactly 0
+        ds = torch.zeros_like(ds)
     dq = _merge_heads(torch.matmul(ds, kh) * scale).to(dt)
     dk = _merge_heads(torch.matmul(ds.transpose(-1, -2), qh) * scale).to(dt)
     dv = _merge_heads(torch.matmul(pc.transpose(-1, -2), gh)).to(dt)
@@ -332,7 +335,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-PACKED_SEQ = (2, 4, 8, 16, 32)  # S dividing 128 up to 32; S = 1 is v itself
+PACKED_SEQ = (1, 2, 4, 8, 16, 32)  # S dividing 128 up to 32, as padded_packed_plan
 PACKED_HEAD_DIMS = (40, 80)  # the auto route's packed head widths
 
 

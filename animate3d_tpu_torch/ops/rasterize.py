@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -620,35 +620,39 @@ _SKIP_MARGIN = 1e-3  # composite_common.cuh's SKIP_MARGIN
 
 
 def _fields_tile_dead(fields: torch.Tensor, origins: torch.Tensor, tile: int = 16,
-                      alpha_min: float = 1.0 / 255.0, strip: Optional[int] = None
-                      ) -> torch.Tensor:
-    """The cull of kernel G's backward (``rect_dead`` in
-    ``csrc/composite_common.cuh``) in torch ops: True where the candidate's
-    alpha is provably under ``alpha_min`` at every pixel centre of its tile,
-    (T, K), or with ``strip`` of each band of ``strip`` pixel rows of it
-    (a warp's pixels at 2), (T, tile // strip, K). Not ok; opacity under
-    alpha_min; or a positive-definite conic whose power bound -1/2
-    lambda_min dist² over the rectangle, plus 1e-5 of the terms' magnitudes
-    for rounding, lies under log(alpha_min / opacity) less the margin. The
-    kernel walks only the others. Used by the tests and to report the
-    culled share; the kernel does not call it."""
-    rows = tile if strip is None else strip
+                      alpha_min: float = 1.0 / 255.0, strip: Optional[int] = None,
+                      block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The cull of kernel G (``rect_dead`` in ``csrc/composite_common.cuh``)
+    in torch ops: True where the candidate's alpha is provably under
+    ``alpha_min`` at every pixel centre of its tile, (T, K), or with
+    ``block`` (bw, bh) of each bw x bh pixel block of it, blocks in
+    row-major order, (T, tile² // (bw bh), K); ``strip`` s is the block
+    (tile, s): at 2 the 16 x 2 pixels of each warp of both directions. Not
+    ok; opacity under alpha_min; or a positive-definite conic whose power
+    bound -1/2 lambda_min dist² over the rectangle, plus 1e-5 of the terms'
+    magnitudes for rounding, lies under log(alpha_min / opacity) less the
+    margin. The kernels walk only the others. Used by the tests and to
+    report the culled shares; the kernels do not call it."""
+    if strip is not None:
+        block = (tile, strip)
+    bw, bh = (tile, tile) if block is None else block
+    nx, nb = tile // bw, (tile // bw) * (tile // bh)
     f = fields.double()[:, :, None, :]  # (T, 12, 1, K)
     x, y, a, b, c = (f[:, i] for i in range(5))
     o = fields[:, None, 5]
     ok = fields[:, None, 10] > 0
     if not alpha_min > 0:
-        dead = ~ok.expand(-1, tile // rows, -1)
-        return dead[:, 0] if strip is None else dead
+        dead = ~ok.expand(-1, nb, -1)
+        return dead[:, 0] if block is None else dead
     det = a * c - b * b
     pd = (a > 0) & (c > 0) & (det > 0)
     lmax = 0.5 * (a + c) + torch.sqrt(0.25 * (a - c) ** 2 + b * b)
     lmin = det / lmax * (1.0 - 1e-9)
-    x0 = origins[:, 0, None, None].double()
-    y0 = (origins[:, 1, None, None].double()
-          + rows * torch.arange(tile // rows, dtype=torch.float64, device=fields.device)[:, None])
-    dx0, dx1 = x - (x0 + tile - 1), x - x0
-    dy0, dy1 = y - (y0 + rows - 1), y - y0
+    blk = torch.arange(nb, dtype=torch.float64, device=fields.device)[:, None]
+    x0 = origins[:, 0, None, None].double() + bw * torch.remainder(blk, nx)
+    y0 = origins[:, 1, None, None].double() + bh * torch.div(blk, nx, rounding_mode="floor")
+    dx0, dx1 = x - (x0 + bw - 1), x - x0
+    dy0, dy1 = y - (y0 + bh - 1), y - y0
     zero = torch.zeros_like(dy0)
     ex = torch.where(dx0 > 0, dx0, torch.where(dx1 < 0, -dx1, zero))
     ey = torch.where(dy0 > 0, dy0, torch.where(dy1 < 0, -dy1, zero))
@@ -657,7 +661,7 @@ def _fields_tile_dead(fields: torch.Tensor, origins: torch.Tensor, tile: int = 1
     pmax = -0.5 * lmin * (ex * ex + ey * ey) + err
     thr = torch.log(alpha_min / o).double() - _SKIP_MARGIN
     dead = ~ok | (o < alpha_min) | (pd & (pmax < thr))
-    return dead[:, 0] if strip is None else dead
+    return dead[:, 0] if block is None else dead
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,17 +15,19 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    and D at the 160-wide L2 shape (F: kernel B
    under ``attention_backend("packed_flash")`` at L0 and L2, and at a
    32-frame clip of 160-wide heads), B also at S 32 and S 8 with 40-wide
-   heads, C also at a
+   heads and at S 1 (a one-frame clip), C also at a
    ragged M at each width, H at every stage-1 shape (recon steps, four-view
    test, validation orbit, testset grid) and on dense synthetic coarse tiles
    at the recon step's shape (the 0.99 clamp at the back and at the front
    of the lists) and at bucket 2's (a cluster of ranks a coarse tile), and
    its forward on tiles where T falls under 1e-4 inside a block (T_final
-   gated), G at the 64^2 recon shapes and on dense synthetic tiles (with
-   the share of candidates its backward culls), E also at S 32 with 160-
-   and 40-wide heads, at S 8 and on a ragged S 2 batch, each backward of
-   E, H and G also launched twice to show it bitwise deterministic; then
-   edge shapes off the main path (G against float64 among them);
+   gated), G at the 64^2 recon shapes and on dense synthetic tiles (T_final
+   gated, with the shares of candidates its cull drops and the densest
+   warp's marks), E also at S 32 with 160- and 40-wide heads, at S 8, at
+   S 1 and on a ragged S 2 batch, each backward of E, H and G also
+   launched twice to show it bitwise deterministic, B, E and G also timed
+   from a CUDA graph (the device's time without the host's launch path);
+   then edge shapes off the main path (G against float64 among them);
 3. end to end: the sampling CLI at full width (SD1.5 widths, 256x256,
    4 views x 16 frames, 2 DDIM steps, random weights from a seed) with every
    launch counter set to 0 just before and read just after; then again at
@@ -257,7 +259,8 @@ def _packed_case(label, b, s, c, heads, gen, backend=None):
     kernel F's route: ``multi_head_attention`` on a temporal site under
     ``attention_backend("packed_flash")`` launches B, counted as
     ``packed_temporal``, against the same plain version (the function of
-    the TPU's ``packed_temporal_flash``)."""
+    the TPU's ``packed_temporal_flash``). ``graph_ms``: the call replayed
+    from a CUDA graph (:func:`_graph_ms`)."""
     import contextlib
 
     from animate3d_tpu_torch.ops import attention as A
@@ -277,6 +280,7 @@ def _packed_case(label, b, s, c, heads, gen, backend=None):
         ref = A.packed_small_attention(q, k, v, heads, scale)
         torch.cuda.synchronize()
         ms = _time_ms(route, 100)  # enough launches that host dispatch does not set the time
+        graph_ms = _graph_ms(route)  # where it still does (S 1, small batches)
     err, tol, rel, ok = _agree(out, ref)
     plain_ms = _time_ms(lambda: A.packed_small_attention(q, k, v, heads, scale), 5)
     qh, kh, vh = (x.reshape(b, s, heads, d).transpose(1, 2).contiguous() for x in (q, k, v))
@@ -285,7 +289,7 @@ def _packed_case(label, b, s, c, heads, gen, backend=None):
     bound, by, term = _bound_ms(4.0 * b * heads * s * s * d, 2.0 * 4 * b * s * c)
     return dict(name=name, shape=label, keys=[(name, (b, s, c))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term, graph_ms=graph_ms)
 
 
 def _geglu_case(label, m, c, inner, gen):
@@ -393,12 +397,13 @@ def _packed_bwd_case(label, b, s, c, heads, gen):
     err, tol, rel, ok = _agree_all(grads, refs)
     ok = ok and same
     ms = _time_ms(lambda: A.packed_attention_bwd(*args), 100)
+    graph_ms = _graph_ms(lambda: A.packed_attention_bwd(*args))
     plain_ms = _time_ms(lambda: A._packed_bwd_plain(*args), 5)
     lib_ms = _sdpa_bwd_ms(q, k, v, g, heads, scale, 1, 20)
     bound, by, term = _bound_ms(10.0 * b * heads * s * s * d, 2.0 * 7 * b * s * c)
     return dict(name="packed_attn_bwd", shape=label, keys=[("packed_attn_bwd", (b, s, c))],
                 max_abs_err=err, tol=tol, rel=rel, ok=ok, same=same, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term, graph_ms=graph_ms)
 
 
 def kernel_phase() -> list:
@@ -439,6 +444,9 @@ def kernel_phase() -> list:
                      256, 32, 1280, 8, gen, backend="packed_flash"),
         _packed_case("S32 temporal (4096, 32, 320) h8", 4096, 32, 320, 8, gen),
         _packed_case("S8 temporal (16384, 8, 320) h8", 16384, 8, 320, 8, gen),
+        # a one-frame clip, which the TPU's padded_packed_plan sends to its
+        # kernel: out is v's bits
+        _packed_case("S1 temporal (8192, 1, 320) h8", 8192, 1, 320, 8, gen),
         _geglu_case("L0 M=131072 C=320 I=1280", 131072, 320, 1280, gen),
         _geglu_case("L1 M=32768 C=640 I=2560", 32768, 640, 2560, gen),
         _geglu_case("L2 M=8192 C=1280 I=5120", 8192, 1280, 5120, gen),
@@ -487,12 +495,16 @@ def kernel_phase() -> list:
         _packed_bwd_case("S32 temporal (4096, 32, 320) h8", 4096, 32, 320, 8, gen),
         _packed_bwd_case("S8 temporal (16384, 8, 320) h8", 16384, 8, 320, 8, gen),
         _packed_bwd_case("ragged S2 temporal (4099, 2, 320) h8", 4099, 2, 320, 8, gen),
+        # a one-frame clip: dq = dk = 0 exactly, dv = g
+        _packed_bwd_case("S1 temporal (8192, 1, 320) h8", 8192, 1, 320, 8, gen),
     ]
     print(f"[kernel] card {_smi()}")
     for r in rows:
         extra = f" lse_err {r['lse_err']:.3e}" if "lse_err" in r else ""
         if "same" in r:
             extra += f" two launches bitwise equal {r['same']}"
+        if "graph_ms" in r:
+            extra += f" graph_ms {r['graph_ms']:.4f}"
         print(f"[kernel] {r['name']:<15} {r['shape']:<58} max|d| {r['max_abs_err']:.3e} "
               f"(tol {r['tol']:.3e}) rel L2 {r['rel']:.3e} (tol {REL_L2_TOL:.0e}){extra} ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
@@ -730,8 +742,9 @@ def edge_phase() -> bool:
 def _g_front_clamp_edge() -> bool:
     """Kernel G on tiles whose lists open with clamp-binding candidates
     (each divides its pixels' suffix term by 1 - alpha ~ 0.01) against G's
-    plain versions in float64: planes within 1e-5, each gradient row within
-    1e-4 of that row's largest magnitude."""
+    plain versions in float64: planes within 1e-5, T_final within
+    ``H_T_REL`` relative, each gradient row within 1e-4 of that row's
+    largest magnitude."""
     from animate3d_tpu_torch.ops import rasterize as R
 
     ok = True
@@ -745,13 +758,14 @@ def _g_front_clamp_edge() -> bool:
         g64 = R._composite_fields_bwd_plain(f.double(), org.double(), cot.double())
         torch.cuda.synchronize()
         perr = float((out.double() - out64).abs().max())
+        t_rel = _t_final_rel(out.double(), out64)
         gerr = max(float((g[:, r] - g64[:, r]).abs().max() / g64[:, r].abs().max())
                    for r in range(10))
-        good = perr <= 1e-5 and gerr <= 1e-4
+        good = perr <= 1e-5 and t_rel <= H_T_REL and gerr <= 1e-4
         ok &= good
         print(f"[edge] G front clamp (8, 12, {k}) vs float64: planes max|d| {perr:.3e} (tol "
-              f"1e-05), worst gradient row max|d| / row max {gerr:.3e} (tol 1e-04) "
-              f"{'ok' if good else 'FAIL'}")
+              f"1e-05), T_final rel {t_rel:.3e} (tol {H_T_REL:.0e}), worst gradient row "
+              f"max|d| / row max {gerr:.3e} (tol 1e-04) {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -937,9 +951,9 @@ RECON_STEPS = 3
 # dw, dalpha, suffix, the 10 gradient terms). The backward's function needs
 # alpha once a pair: the kernels' second and third evaluations (block
 # recompute, reverse walk) are their own strategy and are not counted. H
-# evaluates the pairs its AABB gate and early stop leave; G's forward every
-# pair; G's backward the pairs its exact cull keeps (a warp's 32 pixels
-# times the candidates the warp marks), after one cull test for each
+# evaluates the pairs its AABB gate and early stop leave; G (both
+# directions) the pairs its exact cull keeps (a warp's 32 pixels times the
+# candidates the warp marks), after one cull test for each
 # (tile, candidate) and one for each (warp, listed candidate), each about
 # G_CULL_F64_OPS f64 operations (rect_dead: the conic's determinant and
 # eigenvalue, the distance to the rectangle, the rounding term, the log).
@@ -1069,21 +1083,23 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True,
     """Kernel H or G forward (and backward) on path fields against the
     plain versions. Limits: planes max |diff| <= 2^-6 (one flipped 1/255
     gate or 0.99 clamp moves a pixel by at most 1/255 T) and relative L2 <=
-    1e-4; with ``t_gate`` also T_final (plane 5) within relative error
-    ``H_T_REL`` wherever the plain T is above 1e-30 (products in another
-    order); field gradients relative L2 <= 1e-3 (sums over a tile's pixels
-    in another order, amplified by 1 / (1 - alpha) <= 100). The bound counts
-    the rows each kernel reads (H: 12, G: rows 0-10) and 6 cotangent planes.
-    G's backward counts the work its function needs (``H_BWD_OPS`` on the
-    pairs the exact cull keeps, ``G_CULL_F64_OPS`` a cull test), the
-    counts and the printed shares of (tile, candidate) and (warp,
-    candidate) pairs culled taken from the cull's torch mirror
-    (``_fields_tile_dead``); ``tpu_bound_ms`` keeps the earlier count (14
-    operations on every pair the TPU kernel evaluates) for comparison. G's
-    gradient rows are also gated on their zeros: a (tile, candidate) row of
-    the kernel's gradient is zero exactly where the plain version's is, so
-    a live candidate that the kernel's cull dropped fails the row even
-    where its share of the relative L2 is small."""
+    1e-4; for G, and for H with ``t_gate``, also T_final (plane 5) within
+    relative error ``H_T_REL`` wherever the plain T is above 1e-30 (products
+    in another order; a live candidate (alpha >= 1/255) that G's cull
+    dropped moves T by 0.39% or more), and with ``t_gate`` T under 1e-4
+    (H's T-fall tiles); field gradients relative L2 <= 1e-3 (sums over a
+    tile's pixels in another order, amplified by 1 / (1 - alpha) <= 100).
+    The bound counts the rows each kernel reads (H: 12, G: rows 0-10) and 6
+    cotangent planes. G counts the work its function needs on the pairs
+    its exact cull keeps (``H_FWD_OPS`` / ``H_BWD_OPS``, ``G_CULL_F64_OPS``
+    a cull test: :func:`_g_cull`); ``tpu_bound_ms`` keeps the earlier count
+    (14 operations on every pair the TPU kernel evaluates) for comparison.
+    G's rows also give ``graph_ms``, the device time of a call replayed
+    from a CUDA graph, and its gradient rows are gated on their zeros: a
+    (tile, candidate) row of the kernel's gradient is zero exactly where
+    the plain version's is, so a live candidate that the kernel's cull
+    dropped fails the row even where its share of the relative L2 is
+    small."""
     from animate3d_tpu_torch.ops import rasterize as R
 
     n, _, k = fields.shape
@@ -1104,15 +1120,23 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True,
     rel = float((out - ref).norm() / ref.norm())
     ok = err <= H_PLANE_TOL and rel <= H_PLANE_REL and bool(torch.isfinite(out).all())
     t_rel = None
+    if t_gate or kernel == "G":
+        t_rel = _t_final_rel(out, ref)
+        ok = ok and t_rel <= H_T_REL
     if t_gate:
-        keep = ref[:, :, 5] > 1e-30
-        t_rel = float(((out[:, :, 5] - ref[:, :, 5]).abs() / ref[:, :, 5])[keep].max())
-        ok = ok and t_rel <= H_T_REL and float(ref[:, :, 5].max()) < 1e-4
-    bound, by = _bound_f32(H_FWD_OPS[0] * pairs + H_FWD_OPS[1] * live,
-                           in_bytes + 4.0 * out.numel())
+        ok = ok and float(ref[..., 5, :].max()) < 1e-4
+    fwd_bytes = in_bytes + 4.0 * out.numel()
+    bound, by = _bound_f32(H_FWD_OPS[0] * pairs + H_FWD_OPS[1] * live, fwd_bytes)
+    cull = tpu_bound = graph_ms = None
+    if kernel == "G":
+        cull = _g_cull(fields, orig)
+        tpu_bound = bound
+        bound, by = _bound_f32(H_FWD_OPS[0] * cull["kept"] + H_FWD_OPS[1] * live, fwd_bytes,
+                               f64_ops=G_CULL_F64_OPS * cull["tests"])
+        graph_ms = _graph_ms(lambda: fwd(fields, orig))
     res = [dict(name=f"{name}_fwd", shape=shape, keys=[(f"{name}_fwd", key)],
                 max_abs_err=err, tol=H_PLANE_TOL, rel=rel, rel_tol=H_PLANE_REL, ok=ok,
-                t_rel=t_rel,
+                t_rel=t_rel, cull=cull, tpu_bound_ms=tpu_bound, graph_ms=graph_ms,
                 pairs=pairs, live=live, ms=_time_ms(lambda: fwd(fields, orig), 10),
                 plain_ms=_time_ms(lambda: fwd_plain(fields, orig), 1),
                 library_ms=None, bound_ms=bound, bound_by=by)]
@@ -1128,27 +1152,68 @@ def _composite_rows(kernel: str, label, fields, orig, gen, backward=True,
         # planes 0-5 of the cotangent (r, g, b, alpha, depth, T_final)
         bwd_bytes = in_bytes + 4.0 * (cot.numel() * 6 // 8 + g.numel())
         bound, by = _bound_f32(H_BWD_OPS[0] * pairs + H_BWD_OPS[1] * live, bwd_bytes)
-        culled = kept = tpu_bound = zeros_same = None
+        tpu_bound = zeros_same = graph_ms = None
         if kernel == "G":
-            tile_dead = R._fields_tile_dead(fields, orig)  # (T, K)
-            marked = ~tile_dead[:, None] & ~R._fields_tile_dead(fields, orig, strip=2)
-            culled = (float(tile_dead.float().mean()), 1.0 - float(marked.float().mean()))
-            kept = 32 * int(marked.sum())  # a warp's 32 pixels a marked candidate
-            tests = tile_dead.numel() + marked.shape[1] * int((~tile_dead).sum())
             tpu_bound = bound
-            bound, by = _bound_f32(H_BWD_OPS[0] * kept + H_BWD_OPS[1] * live, bwd_bytes,
-                                   f64_ops=G_CULL_F64_OPS * tests)
+            bound, by = _bound_f32(H_BWD_OPS[0] * cull["kept"] + H_BWD_OPS[1] * live,
+                                   bwd_bytes, f64_ops=G_CULL_F64_OPS * cull["tests"])
             zeros_same = bool(torch.equal(g[:, :10].ne(0).any(1), gref[:, :10].ne(0).any(1)))
             ok = ok and zeros_same
+            graph_ms = _graph_ms(lambda: bwd(fields, orig, cot))
         res.append(dict(
             name=f"{name}_bwd", shape=shape, keys=[(f"{name}_bwd", key)],
             max_abs_err=float((g - gref).abs().max()), tol=None, rel=rel, rel_tol=H_GRAD_REL,
-            ok=ok, same=same, pairs=pairs, live=live, culled=culled, kept=kept,
-            zeros_same=zeros_same, tpu_bound_ms=tpu_bound,
+            ok=ok, same=same, pairs=pairs, live=live, cull=cull, zeros_same=zeros_same,
+            tpu_bound_ms=tpu_bound, graph_ms=graph_ms,
             ms=_time_ms(lambda: bwd(fields, orig, cot), 20),
             plain_ms=_time_ms(lambda: bwd_plain(fields, orig, cot), 1),
             library_ms=None, bound_ms=bound, bound_by=by))
     return res
+
+
+def _t_final_rel(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest relative error of T_final (plane 5 of the planes ``(..., 8,
+    256)``) wherever the reference's is above 1e-30."""
+    t_out, t_ref = out[..., 5, :], ref[..., 5, :]
+    keep = t_ref > 1e-30
+    return float(((t_out - t_ref).abs() / t_ref)[keep].max())
+
+
+def _g_cull(fields: torch.Tensor, orig: torch.Tensor) -> dict:
+    """Kernel G's exact cull on these fields, by its torch mirror
+    (``_fields_tile_dead``; both directions walk a warp's 16 x 2 pixels):
+    the shares of (tile, candidate) and (warp, candidate) pairs culled, the
+    (pixel, candidate) pairs kept (a warp's 32 pixels a marked candidate),
+    the cull tests (one a (tile, candidate), one a (warp, listed
+    candidate)), and the marks of the densest warp, which set a small
+    grid's time, and of the mean warp, beside those of squarer 8 x 4
+    blocks."""
+    from animate3d_tpu_torch.ops import rasterize as R
+
+    listed = ~R._fields_tile_dead(fields, orig)  # (T, K)
+    marked = listed[:, None] & ~R._fields_tile_dead(fields, orig, strip=2)  # (T, 8, K)
+    squarer = listed[:, None] & ~R._fields_tile_dead(fields, orig, block=(8, 4))
+    return dict(culled=(1.0 - float(listed.float().mean()), 1.0 - float(marked.float().mean())),
+                kept=32 * int(marked.sum()),
+                tests=listed.numel() + marked.shape[1] * int(listed.sum()),
+                densest=int(marked.sum(-1).max()), mean=float(marked.sum(-1).float().mean()),
+                densest_8x4=int(squarer.sum(-1).max()),
+                mean_8x4=float(squarer.sum(-1).float().mean()))
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """ms a call of ``fn`` takes replayed from one CUDA graph of ``iters``
+    calls: the device's time without the host's launch path, which a
+    small grid's kernel outruns."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = _time_ms(graph.replay, 3) / iters
+    del graph
+    return ms
 
 
 def _bound_f32(ops: float, nbytes: float, f64_ops: float = 0.0):
@@ -1230,11 +1295,15 @@ def composite_kernel_phase() -> list:
             tol += f"rows 10-11 zero, two launches bitwise equal {r['same']}; "
         if r.get("t_rel") is not None:
             tol += f"T_final rel {r['t_rel']:.3e} (tol {H_T_REL:.0e}); "
-        if r.get("culled") is not None:
-            tol += (f"zero rows as plain {r['zeros_same']}; candidates culled (by the "
-                    f"cull's torch mirror) a tile {r['culled'][0]:.4f}, a warp "
-                    f"{r['culled'][1]:.4f}, {r['kept']} pairs kept; bound at the TPU "
-                    f"kernel's count {r['tpu_bound_ms']:.4f}; ")
+        if r.get("zeros_same") is not None:
+            tol += f"zero rows as plain {r['zeros_same']}; "
+        if r.get("cull") is not None:
+            c = r["cull"]
+            tol += (f"candidates culled (by the cull's torch mirror) a tile "
+                    f"{c['culled'][0]:.4f}, a warp {c['culled'][1]:.4f}, {c['kept']} pairs "
+                    f"kept, warp marks densest {c['densest']} mean {c['mean']:.2f} (8 x 4 "
+                    f"blocks: {c['densest_8x4']}, {c['mean_8x4']:.2f}); bound at the TPU "
+                    f"kernel's count {r['tpu_bound_ms']:.4f}; graph_ms {r['graph_ms']:.4f}; ")
         print(f"[kernel] {r['name']:<20} {r['shape']:<64} max|d| {r['max_abs_err']:.3e} {tol}"
               f"rel L2 {r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} "

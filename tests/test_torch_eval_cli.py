@@ -155,12 +155,14 @@ def test_packed_flash_plain_path_matches_pallas_kernel(batch, seq, head_dim):
 # (batch, sq, sk, channels, heads, self-attention) of the UNet's sites at
 # 256² (the CFG batch): spatial / cross-view flash sites, text cross-attention,
 # temporal sites at L0-L3; L2 cross-view sites at 512² (160-wide heads),
-# one of them at the CFG batch; and an L2 temporal site of a 32-frame clip
+# one of them at the CFG batch; an L2 temporal site of a 32-frame clip, and
+# L0 and L2 temporal sites of a one-frame clip
 _SITES = [(32, 4096, 4096, 320, 8, True), (32, 1024, 1024, 640, 8, True),
           (128, 1024, 77, 320, 8, False), (8192, 16, 16, 320, 8, True),
           (2048, 16, 16, 640, 8, True), (512, 16, 16, 1280, 8, True),
           (8, 1024, 1024, 1280, 8, True), (32, 1024, 1024, 1280, 8, True),
-          (512, 32, 32, 1280, 8, True)]
+          (512, 32, 32, 1280, 8, True), (8192, 1, 1, 320, 8, True),
+          (512, 1, 1, 1280, 8, True)]
 
 
 @pytest.mark.parametrize("backend", ["xla", "flash", "packed", "packed_flash"])
@@ -211,11 +213,11 @@ def test_forced_backends_route_as_jax(backend, monkeypatch):
 
 def test_packed_kernel_takes_the_motion_modules_head_widths():
     """Kernel B and its backward E take 40-, 80- and 160-wide heads at every
-    S from 2 up to 32 dividing 128 (the F route at the 1280-channel motion
-    modules, 32-frame clips included): one rule, ``packed_kernel_takes``,
-    for both. Nothing else, so the F route raises on CUDA rather than taking
-    the plain version."""
-    assert TA.PACKED_SEQ == tuple(s for s in range(2, 33) if 128 % s == 0)
+    S up to 32 dividing 128, as the TPU's ``padded_packed_plan`` (the F route
+    at the 1280-channel motion modules, 32-frame and one-frame clips
+    included): one rule, ``packed_kernel_takes``, for both. Nothing else, so
+    the F route raises on CUDA rather than taking the plain version."""
+    assert TA.PACKED_SEQ == tuple(s for s in range(1, 33) if 128 % s == 0)
     for s in TA.PACKED_SEQ:
         for d in (40, 80, 160):
             assert TA.packed_kernel_takes(s, d), (s, d)

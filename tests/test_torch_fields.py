@@ -328,16 +328,15 @@ def test_system_step_on_the_fields_route_matches_jax():
                                    err_msg=name)
 
 
-def _route_fields(res):
+def _route_fields(res, azimuths=(0.0, 120.0)):
     """Kernel G's inputs as the fields route builds them: a seeded
     ``random_state`` asset (2,000 gaussians) projected and binned by the
-    port through two views at ``res``²."""
+    port through one view a azimuth (two by default) at ``res``²."""
     from animate3d_tpu_torch.gaussians.state import random_state
 
     st = random_state(2000, radius=0.4, generator=torch.Generator().manual_seed(0))
-    cams = fixed_view_cameras(azimuths_deg=(0.0, 120.0), height=res, width=res,
-                              total_frame=1)
-    b, n = 2, st.num_points
+    cams = fixed_view_cameras(azimuths_deg=azimuths, height=res, width=res, total_frame=1)
+    b, n = len(azimuths), st.num_points
     with torch.no_grad():
         fields, orig, _, _ = R.tile_fields(
             st.xyz.expand(b, n, 3), st.get_scaling().expand(b, n, 3),
@@ -408,6 +407,52 @@ def test_g_cull_drops_only_candidates_dead_at_every_pixel(case):
     assert not g[:, :10].permute(0, 2, 1)[dead].any()
 
 
+_BUCKET2_AZIMUTHS = tuple(45.0 * i for i in range(8))  # 8 renders at 64²: 128 tiles
+
+
+def _g_fields(case):
+    """(fields, origins) of kernel G: the route's at 64² (two renders, or a
+    bucket-2 batch of eight), dense random tiles with non-PD conics, or
+    tiles whose lists open with clamp-binding candidates."""
+    if case == "route-64":
+        return _route_fields(64)
+    if case == "bucket-2":
+        return _route_fields(64, _BUCKET2_AZIMUTHS)
+    if case == "dense":
+        return _dense_fields_with_non_pd_conics()
+    org, f, _ = _front_clamp_case(256)
+    return torch.from_numpy(f), torch.from_numpy(org)
+
+
+@pytest.mark.parametrize("case", ["route-64", "bucket-2", "dense", "front-clamp"])
+def test_g_forward_cull_keeps_the_planes(case):
+    """Kernel G forward's walk: each warp takes only the listed candidates
+    it marks for its own 16 x 2 pixels, those that neither the tile's nor
+    the band's cull drops (``_fields_tile_dead``, and with ``strip=2``). No
+    candidate dropped for a band is live at any of its pixels, and the plain
+    forward with those candidates' ``ok`` set to 0 gives the band's pixels
+    the bits of the plain forward of the original fields."""
+    fields, orig = _g_fields(case)
+    n_t = fields.shape[0]
+    dead = R._fields_tile_dead(fields, orig)[:, None] | R._fields_tile_dead(fields, orig, strip=2)
+    assert dead.shape == (n_t, 8, fields.shape[2])
+    _, _, gx, gy = R._pixel_grid(orig, 16, 1)
+    alpha, _ = R._block_alpha(fields, gx, gy, 1.0 / 255.0, 0.99)
+    live = (alpha[:, 0] > 0).unflatten(1, (8, 32)).any(2)  # (T, 8, K): live in the band
+    del alpha
+    assert live.any() and dead.any()
+    assert not (live & dead).any()
+    planes = R._composite_fields_plain(fields, orig)
+    for w in range(8):
+        culled = fields.clone()
+        culled[:, 10][dead[:, w]] = 0.0
+        band = slice(32 * w, 32 * (w + 1))
+        assert torch.equal(R._composite_fields_plain(culled, orig)[:, :, band],
+                           planes[:, :, band]), w
+    if case in ("route-64", "bucket-2"):  # a band walks few of the route's candidates
+        assert float(dead.float().mean()) > 0.9
+
+
 def test_g_wrapper_rejects_what_the_kernel_does_not_take():
     f = torch.zeros((2, 12, 1152))
     with pytest.raises(ValueError, match="K=1152"):
@@ -421,18 +466,28 @@ def test_g_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.cuda
 def test_g_kernel_matches_plain_on_cuda():
     """Kernel G forward and backward against the plain versions on the card
-    (planes max |diff| <= 2^-6, relative L2 <= 1e-4; gradient relative L2
-    <= 1e-3: f32 sums in another order)."""
+    (planes max |diff| <= 2^-6, relative L2 <= 1e-4, T_final (plane 5)
+    within 1e-3 relative wherever the plain T is above 1e-30: a live
+    candidate (alpha >= 1/255) that the cull dropped moves T by 0.39% or
+    more; gradient relative L2 <= 1e-3: f32 sums in another order), on
+    :func:`make_fields` tiles, the route's bucket-2 batch (128 tiles at
+    64²) and 128 dense tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    org, f = make_fields(1, 256)
-    fc, oc = torch.from_numpy(f).cuda(), torch.from_numpy(org).cuda()
-    cot = torch.randn((8, 8, 256), device="cuda") * 1e-2
-    out, ref = R.composite_fields(fc, oc), R._composite_fields_plain(fc, oc)
-    g, gref = R.composite_fields_bwd(fc, oc, cot), R._composite_fields_bwd_plain(fc, oc, cot)
-    assert float((out - ref).abs().max()) <= 2.0 ** -6
-    assert float((out - ref).norm() / ref.norm()) <= 1e-4
-    assert float((g - gref).norm() / gref.norm()) <= 1e-3
+    cases = [make_fields(1, 256), make_fields(5, 256, n_t=128)]
+    f, org = _g_fields("bucket-2")
+    cases.append((org.numpy(), f.numpy()))
+    for i, (org, f) in enumerate(cases):
+        fc, oc = torch.from_numpy(f).cuda(), torch.from_numpy(org).cuda()
+        cot = torch.randn((fc.shape[0], 8, 256), device="cuda") * 1e-2
+        out, ref = R.composite_fields(fc, oc), R._composite_fields_plain(fc, oc)
+        g, gref = R.composite_fields_bwd(fc, oc, cot), R._composite_fields_bwd_plain(fc, oc, cot)
+        assert float((out - ref).abs().max()) <= 2.0 ** -6, i
+        assert float((out - ref).norm() / ref.norm()) <= 1e-4, i
+        keep = ref[:, 5] > 1e-30
+        t_rel = ((out[:, 5] - ref[:, 5]).abs() / ref[:, 5])[keep]
+        assert float(t_rel.max()) <= 1e-3, i
+        assert float((g - gref).norm() / gref.norm()) <= 1e-3, i
 
 
 @pytest.mark.cuda

@@ -67,16 +67,18 @@ def test_flash_plain_kv_group_matches_broadcast():
 
 
 def test_packed_plain_matches_pallas_kernel():
+    # 16 frames, and one (S 1, which the TPU's packed kernel takes too: out is v)
     rng = np.random.default_rng(2)
-    b, s, h, d = 16, 16, 2, 40
-    (q, qp), (k, kp), (v, vp) = (_merged_and_padded(rng, b, s, h, d) for _ in range(3))
-    scale = d ** -0.5
-    with jax.default_matmul_precision("highest"):
-        ref_p = JA.packed_temporal_flash_padded(qp, kp, vp, h, scale)
-    ref = np.asarray(ref_p).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
-    out = TA.packed_attention(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), h, scale)
-    np.testing.assert_allclose(out.numpy(), ref, atol=3e-5, rtol=1e-4)
+    b, h, d = 16, 2, 40
+    for s in (16, 1):
+        (q, qp), (k, kp), (v, vp) = (_merged_and_padded(rng, b, s, h, d) for _ in range(3))
+        scale = d ** -0.5
+        with jax.default_matmul_precision("highest"):
+            ref_p = JA.packed_temporal_flash_padded(qp, kp, vp, h, scale)
+        ref = np.asarray(ref_p).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
+        out = TA.packed_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), h, scale)
+        np.testing.assert_allclose(out.numpy(), ref, atol=3e-5, rtol=1e-4, err_msg=f"S {s}")
 
 
 def test_geglu_plain_matches_pallas_kernel():
@@ -98,9 +100,9 @@ def test_geglu_plain_matches_pallas_kernel():
 
 
 # full-width attention sites of the main path (CFG batch: 2 x 4 views x 16
-# frames) at 256^2, 512^2 and one at 1024^2, and of a 4-frame clip: (query
-# batch, Sq, Sk, C, heads, self-attention, which padded JAX predicate the
-# layer asks first). A site whose padded predicate declines falls through to
+# frames) at 256^2, 512^2 and one at 1024^2, and of a 4-frame and a
+# one-frame clip: (query batch, Sq, Sk, C, heads, self-attention, which
+# padded JAX predicate the layer asks first). A site whose padded predicate declines falls through to
 # JAX's multi_head_attention and its auto rule.
 _SITES = [
     ("L0 cross-view attn1 / spatial branch", 32, 4096, 4096, 320, 8, True, "flash"),
@@ -115,6 +117,8 @@ _SITES = [
     ("L2 temporal", 512, 16, 16, 1280, 8, True, "packed"),
     ("L3 temporal", 128, 16, 16, 1280, 8, True, "packed"),
     ("L0 temporal, a 4-frame clip", 2048, 4, 4, 320, 8, True, "packed"),
+    ("L0 temporal, a one-frame clip", 8192, 1, 1, 320, 8, True, "packed"),
+    ("L2 temporal, a one-frame clip", 512, 1, 1, 1280, 8, True, "packed"),
     ("512 L0 cross-view attn1 / spatial branch", 32, 16384, 16384, 320, 8, True, "flash"),
     ("512 L0 i2v frame-0 K/V", 32, 16384, 16384, 320, 8, False, "flash"),
     ("512 L1 cross-view attn1 / spatial branch", 32, 4096, 4096, 640, 8, True, "flash"),
@@ -381,19 +385,25 @@ def test_packed_bwd_plain_matches_pallas_vjp():
     """The plain backward of kernel E against jax.vjp of
     packed_temporal_flash_padded (Pallas forward and backward kernels in
     interpret mode), heads lane-padded to 128 on the JAX side; f32 at
-    "highest" precision, atol 1e-5 / rtol 1e-4."""
+    "highest" precision, atol 1e-5 / rtol 1e-4; at S 16 and at S 1, where
+    the plain dq and dk are exactly 0 (a one-token softmax is the constant
+    1; JAX's hold the rounding of g v^T - Delta) and dv is g."""
     rng = np.random.default_rng(4)
-    b, s, h, d = 16, 16, 2, 40
-    (q, qp), (k, kp), (v, vp), (g, gp) = (_merged_and_padded(rng, b, s, h, d)
-                                          for _ in range(4))
-    scale = d ** -0.5
-    with jax.default_matmul_precision("highest"):
-        _, vjp = jax.vjp(lambda *a: JA.packed_temporal_flash_padded(*a, h, scale), qp, kp, vp)
-        ref = [np.asarray(x).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
-               for x in vjp(gp)]
-    got = TA._packed_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, g)), h, scale)
-    for x, r in zip(got, ref):
-        np.testing.assert_allclose(x.numpy(), r, atol=1e-5, rtol=1e-4)
+    b, h, d = 16, 2, 40
+    for s in (16, 1):
+        (q, qp), (k, kp), (v, vp), (g, gp) = (_merged_and_padded(rng, b, s, h, d)
+                                              for _ in range(4))
+        scale = d ** -0.5
+        with jax.default_matmul_precision("highest"):
+            _, vjp = jax.vjp(lambda *a: JA.packed_temporal_flash_padded(*a, h, scale),
+                             qp, kp, vp)
+            ref = [np.asarray(x).reshape(b, s, h, JA.DP)[..., :d].reshape(b, s, h * d)
+                   for x in vjp(gp)]
+        got = TA._packed_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, g)), h, scale)
+        for x, r in zip(got, ref):
+            np.testing.assert_allclose(x.numpy(), r, atol=1e-5, rtol=1e-4, err_msg=f"S {s}")
+    assert not got[0].any() and not got[1].any()
+    assert torch.equal(got[2], torch.from_numpy(g))
 
 
 def test_geglu_fn_grads_match_pallas_vjp():
