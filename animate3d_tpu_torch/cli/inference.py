@@ -3,19 +3,26 @@
     python -m animate3d_tpu_torch.cli.inference --ip_image_root DIR \\
         --model_size full -W 256 -H 256 -N 4 -L 16 --steps 25
 
-Builds the MV motion UNet + VAE (random weights from a seed until
-checkpoint files are in the repository), VAE-encodes the N conditioning
+Builds the MV motion UNet, VAE and CLIP towers (seeded), loads the
+released torch artifacts under ``--flax_params`` (the artifact root of
+``convert/weights.py``: the MVDream stack, motion adapter, IP-Adapter and
+image encoder) and ``--pretrained_unet_path`` (the released motion
+checkpoint, or the port trainer's motion-module export directory), where
+they exist; else it warns (smoke mode). It VAE-encodes the N conditioning
 renders ``{0..N-1}.png``, runs the DDIM / CFG / FreeInit sampler and writes
 the horizontal N-view GIF. Text conditioning comes from
-``--prompt_embeds_path`` (npz with ``cond``/``uncond`` (77, D) arrays), zeros
-otherwise; IP-Adapter image embeddings are zeros (no image encoder yet).
-Runs on CUDA; ``--device cpu`` exists for the tests.
+``--prompt_embeds_path`` (npz with ``cond``/``uncond`` (77, D) arrays), else
+from ``--prompt`` through the text tower and tokenizer when both were
+loaded, else zeros; the IP-Adapter image embeds come from the conditioning
+renders through the vision tower when it was loaded, else zeros. Runs on
+CUDA; ``--device cpu`` exists for the tests.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 import torch
@@ -23,7 +30,9 @@ import torch
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"gif": path, "latents": final latents,
-    "step_seconds": per-denoise-step wall times}."""
+    "text_cond", "image_embeds", "loaded" (components read from files),
+    "step_seconds": per-denoise-step wall times, "run_seconds": conditioning,
+    sampling and decode}."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default=None, help="inference yaml")
     parser.add_argument("--prompt", default="")
@@ -32,6 +41,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--ip_image_name", default="")
     parser.add_argument("--save_name", default="sample")
     parser.add_argument("--output_dir", default="outputs/inference")
+    parser.add_argument("--pretrained_unet_path", default=None,
+                        help="released motion checkpoint, or the port trainer's motion export")
+    parser.add_argument("--flax_params", default=None,
+                        help="artifact root of the released torch weights")
     parser.add_argument("--prompt_embeds_path", default=None)
     parser.add_argument("--model_size", default=None, choices=[None, "full", "tiny"],
                         help="tiny = test scale (overrides config)")
@@ -51,8 +64,14 @@ def main(argv=None) -> dict:
     from PIL import Image
 
     from animate3d_tpu_torch.core.device import resolve_device
+    from animate3d_tpu_torch.models.clip import encode_ip_adapter_images
     from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
-    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.models.factory import (
+        build_models,
+        encode_text,
+        has_tokenizer,
+        init_and_load,
+    )
     from animate3d_tpu_torch.pipelines.mv_sampler import (
         MVSampler,
         MVSamplerConfig,
@@ -67,10 +86,12 @@ def main(argv=None) -> dict:
             cfg_yaml = yaml.safe_load(fh) or {}
     dev = resolve_device(args.device)
 
-    # 1. models (random weights: no checkpoint files in the repository yet)
+    # 1. models, then the weights on disk (seeded where none are given)
     model_size = args.model_size or cfg_yaml.get("model_size", "full")
-    unet, vae = build_models(model_size, args.N, dev)
-    print("WARNING: no UNet weights given — random init (smoke mode)")
+    towers = bool(args.flax_params) and os.path.isdir(args.flax_params)
+    unet, vae, text_model, vision_model = build_models(model_size, args.N, dev, clip=towers)
+    unet, vae, text_model, vision_model, loaded = init_and_load(
+        unet, vae, text_model, vision_model, args.flax_params, args.pretrained_unet_path)
 
     # 2. conditioning images (the static N-view renders)
     def load_cond(i):
@@ -81,6 +102,9 @@ def main(argv=None) -> dict:
 
     cond_images = torch.as_tensor(np.stack([load_cond(i) for i in range(args.N)]),
                                   device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_run = time.perf_counter()
 
     # 3. text + image conditioning
     ucfg = unet.config
@@ -88,12 +112,19 @@ def main(argv=None) -> dict:
         z = np.load(args.prompt_embeds_path)
         text_cond = torch.as_tensor(np.tile(z["cond"][None], (args.N, 1, 1)), device=dev)
         text_uncond = torch.as_tensor(np.tile(z["uncond"][None], (args.N, 1, 1)), device=dev)
+    elif text_model is not None and has_tokenizer(args.flax_params):
+        text_cond, text_uncond = encode_text(args.prompt, "", args.N, text_model,
+                                             args.flax_params)
     else:
         print("[prompt] WARNING: no text encoder — zero text embeddings (smoke mode)")
         text_cond = torch.zeros((args.N, 77, ucfg.cross_attention_dim), device=dev)
         text_uncond = text_cond
-    print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
-    image_embeds = torch.zeros((args.N, ucfg.image_embed_dim), device=dev)
+    if vision_model is not None:
+        with torch.no_grad():
+            image_embeds = encode_ip_adapter_images(vision_model, cond_images).float()
+    else:
+        print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
+        image_embeds = torch.zeros((args.N, ucfg.image_embed_dim), device=dev)
 
     # 4. sample
     sched_kwargs = cfg_yaml.get("noise_scheduler_kwargs", {})
@@ -108,18 +139,33 @@ def main(argv=None) -> dict:
         freeinit_enabled=cfg_yaml.get("freeinit_enabled", True),
         freeinit_num_iters=cfg_yaml.get("freeinit_num_iters", args.freeinit_iters),
         i2v_cond_time_zero=cfg_yaml.get("i2v_cond_time_zero", False),
+        **_similarity_init(cfg_yaml),
     )
     sampler = MVSampler(unet, scfg, scheduler)
     ffl = encode_conditioning_images(vae, cond_images * 2.0 - 1.0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     latents = sampler.sample(ffl, text_cond, text_uncond, image_embeds, generator=gen)
     video = decode_video(vae, latents)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    run_seconds = time.perf_counter() - t_run
 
     save_name = "-".join(args.prompt.replace("/", "").split(" ")[:10]) or "sample"
     out = os.path.join(args.output_dir, args.save_name, f"0-{save_name}.gif")
     export_to_gif_mv(video.cpu().numpy(), out)
     print(f"saved {out}")
-    return {"gif": out, "latents": latents, "step_seconds": list(sampler.step_seconds)}
+    return {"gif": out, "latents": latents, "text_cond": text_cond, "image_embeds": image_embeds,
+            "loaded": loaded, "step_seconds": list(sampler.step_seconds),
+            "run_seconds": run_seconds}
+
+
+def _similarity_init(cfg_yaml: dict) -> dict:
+    """The sampler's similarity-init fields from the inference yaml's
+    ``i2v_similarity_init: {strength, origin_prob}`` (null in the shipped
+    yaml, which keeps the pure-noise start)."""
+    sim = cfg_yaml.get("i2v_similarity_init") or {}
+    return {"i2v_similarity_strength": sim.get("strength"),
+            "i2v_similarity_origin_prob": sim.get("origin_prob", 0.0)}
 
 
 if __name__ == "__main__":

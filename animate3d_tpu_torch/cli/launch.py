@@ -1,17 +1,27 @@
 """Experiment runner for the 4D stage: the port of ``animate3d_tpu/cli/launch.py``
-for stage-1 motion reconstruction and its evaluation.
+for stage-1 motion reconstruction, stage-2 4D-SDS refine and their evaluation.
 
     python -m animate3d_tpu_torch.cli.launch --config configs/animate3d/motion_recon_frame_16.yaml \\
         --train system.prompt_processor.prompt="a butterfly" data.image_root=<frames> \\
         system.geometry.geometry_convert_from=<asset.ply> [--device cpu]
+    python -m animate3d_tpu_torch.cli.launch --config configs/animate3d/refine_frame_16.yaml \\
+        --train system.prompt_processor.prompt="a butterfly" data.image_root=<frames> \\
+        system.geometry.geometry_convert_from=<asset.ply> system.weights=<recon trial>/ckpts \\
+        [system.guidance.flax_params_dir=<artifact root>]
 
-``--train`` optimises the deformation field on the whole-video batch
-(uploaded once), logs ``metrics.jsonl``, writes ``ckpts/step_N``, then runs
-the ``--test`` pass. ``--test`` restores ``resume`` (or the trial's latest
-checkpoint) and renders ``system.test_option``'s cameras: ``four_view``, the
-four training views at ``data.eval_height/width`` (default
-``data.height/width``), with a PSNR / SSIM (/ LPIPS, given weights) report
-``save/metrics_test.json`` against the frames of ``data.image_root``; or
+``--train`` first restores ``system.weights`` (stage chaining: a ``ckpts``
+directory, whose newest ``step_N`` is taken, or a ``step_N``; the field's
+parameters only, not the optimizer state), then optimises the deformation
+field on the whole-video batch (uploaded once), with the SDS batch of the
+random-camera sampler every step in refine (``system.load_guidance``),
+logs ``metrics.jsonl``, writes ``ckpts/step_N`` and, every
+``trainer.guidance_eval_interval`` steps, the guidance's teacher preview as
+``save/guidance_eval/it{N}.gif``, then runs the ``--test`` pass.
+``--test`` restores ``resume`` (or the trial's latest checkpoint) and
+renders ``system.test_option``'s cameras: ``four_view``, the four training
+views at ``data.eval_height/width`` (default ``data.height/width``), with a
+PSNR / SSIM (/ LPIPS, given weights) report ``save/metrics_test.json``
+against the frames of ``data.image_root``; or
 ``testset``, the 3-elevation x 4-azimuth grid at the eval size of
 ``data.<key>`` or ``data.random_camera.<key>`` (default 512²). Each view
 becomes RGBA pngs and a video (``save/videos/view_{v}.mp4``, a GIF where no
@@ -22,10 +32,10 @@ mp4 writer exists); ``system.save_gaussian_trajectory`` adds per-frame
 ``save/val/orbit.gif``.
 
 Runs on ``cuda`` unless ``--device cpu``; raises when CUDA is absent. The
-path is float32 throughout: on CUDA, ``resolve_device`` turns TF32 off for
-matmuls and convolutions (the K-planes and MLP products are f32 in the
-reference). Not ported yet: dp meshes (``trainer.mesh_dp``) and the refine
-stage (guidance, ``system.weights``).
+4D stage is float32 (on CUDA, ``resolve_device`` turns TF32 off for
+matmuls and convolutions: the K-planes and MLP products are f32 in the
+reference); refine's frozen guidance UNet runs in bf16, as in the JAX
+package. Not ported yet: dp meshes (``trainer.mesh_dp``).
 """
 
 from __future__ import annotations
@@ -46,6 +56,38 @@ def build_system(cfg, seed: int = 0, device=None):
 
     cls = find(cfg.system_type or "gaussian-splatting-animate3d-system")
     return cls.from_config(cfg, seed=seed, device=device)
+
+
+def load_system_weights(cfg, system) -> None:
+    """Stage chaining: ``system.weights`` restores the deformation field from
+    an earlier stage's checkpoint (refine loads the recon trial's)."""
+    from animate3d_tpu_torch.core.checkpoint import find_latest_checkpoint, restore_checkpoint
+
+    weights = cfg.system.get("weights")
+    if not weights:
+        return
+    path = weights
+    if not os.path.basename(os.path.normpath(path)).startswith("step_"):
+        path = find_latest_checkpoint(path)
+    if path is None or not os.path.exists(os.path.join(path, "checkpoint.pt")):
+        raise FileNotFoundError(f"system.weights={weights!r}: no checkpoint found — run the "
+                                "stage-1 reconstruction first")
+    system.field.load_state_dict(restore_checkpoint(path)["params"])
+    print(f"[weights] restored system weights from {path}")
+
+
+def _guidance_batch(system, raw_rc: dict) -> dict:
+    """The step's SDS batch on the system's device, with the guidance's
+    text and fallback image conditioning."""
+    from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
+
+    dev = system.device
+    gi = system.guidance_inputs
+    return {"cameras": gs_cameras_from_batch(raw_rc, device=dev),
+            "timestamps": torch.as_tensor(raw_rc["timestamps"], device=dev),
+            "c2w": torch.as_tensor(raw_rc["c2w"], device=dev),
+            "text_cond": gi["text_cond"], "text_uncond": gi["text_uncond"],
+            "image_embeds": gi["image_embeds"]}
 
 
 def _validation_render(cfg, system, step: int) -> None:
@@ -85,6 +127,7 @@ def run_train(cfg, system) -> dict:
     ckpt_every = cfg.checkpoint.get("every_n_train_steps", max_steps)
     val_every = cfg.trainer.get("val_check_interval", 0)
     log_every = cfg.trainer.get("log_every_n_steps", 50)
+    geval_every = int(cfg.trainer.get("guidance_eval_interval", 0) or 0)
     ckpt_dir = os.path.join(cfg.trial_dir, "ckpts")
     logger = MetricsLogger(os.path.join(cfg.trial_dir, "metrics.jsonl"))
     pending, logged = [], []
@@ -105,9 +148,20 @@ def run_train(cfg, system) -> dict:
         t0 = time.perf_counter()
 
     for step in range(max_steps):
-        pending.append((step, system.step(batch)))
+        guidance_batch = None
+        if system.do_guidance and dataset.random_sampler is not None:
+            guidance_batch = _guidance_batch(system, dataset.batch(step)["random_camera"])
+        pending.append((step, system.step(batch, guidance_batch=guidance_batch)))
         if step % log_every == 0 or step + 1 == max_steps:
             flush()
+        if geval_every and guidance_batch is not None and (step + 1) % geval_every == 0:
+            from animate3d_tpu_torch.utils.saving import Saver
+
+            imgs = system.guidance_preview(
+                guidance_batch, num_steps=int(cfg.trainer.get("guidance_eval_steps", 25)))
+            Saver(os.path.join(cfg.trial_dir, "save")).gif_mv(
+                f"guidance_eval/it{step + 1}.gif", imgs.cpu().numpy())
+            print(f"[guidance_eval] wrote teacher preview at step {step + 1}")
         if val_every and (step + 1) % val_every == 0 and step + 1 < max_steps:
             _validation_render(cfg, system, step + 1)
         if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
@@ -257,8 +311,6 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, cli_args=args.extras)
-    if cfg.system.get("weights"):
-        raise NotImplementedError("system.weights (stage chaining into refine) is not ported yet")
     os.makedirs(cfg.trial_dir, exist_ok=True)
     dump_config(os.path.join(cfg.trial_dir, "parsed.yaml"),
                 {"data": cfg.data, "system": cfg.system, "trainer": cfg.trainer})
@@ -268,6 +320,7 @@ def main(argv=None) -> dict:
         res.update(run_validate(cfg, system))
         return res
     if args.train:
+        load_system_weights(cfg, system)
         res.update(run_train(cfg, system))
     if args.export:
         cfg.system["save_gaussian_trajectory"] = True

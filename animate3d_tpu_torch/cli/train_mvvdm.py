@@ -11,8 +11,9 @@ metrics at the log cadence, checkpoints and the motion-module export every
 ``checkpointing_steps`` and at the end, resume from the latest checkpoint,
 and validation sampling every ``validation_steps``. The first batch is
 dumped as ``sanity_check.gif``. Text and IP-Adapter image embeddings are
-zeros (no CLIP towers yet). The frozen weights are always stored in the
-compute dtype (the JAX CLI's ``cast_frozen_bf16: true``, its default). Keys
+zeros: the trainer loads no weights yet, the CLIP towers' included. The
+frozen weights are always stored in the compute dtype (the JAX CLI's
+``cast_frozen_bf16: true``, its default). Keys
 that ask for what is not ported yet (weights on disk, wandb, the ZeRO
 optimizer) raise. Runs on CUDA; ``--device cpu`` exists for the tests.
 """
@@ -90,8 +91,8 @@ def main(argv=None) -> dict:
     seed = cfg.get("global_seed", 42)
 
     ckpt_flag = bool(cfg.get("gradient_checkpointing", False))
-    unet, vae = build_models(cfg.get("model_size", "full"), n_views, dev, seed=seed,
-                             train=True, gradient_checkpointing=ckpt_flag)
+    unet, vae, _, _ = build_models(cfg.get("model_size", "full"), n_views, dev, seed=seed,
+                                   train=True, gradient_checkpointing=ckpt_flag, clip=False)
     print("WARNING: no UNet weights given — random init (smoke mode)")
     if ckpt_flag:
         print("[train] gradient checkpointing (block recompute) enabled")

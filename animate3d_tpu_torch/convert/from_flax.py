@@ -14,7 +14,9 @@ leaves convert by kind:
 Adapter parameters (``to_q_i2v``, ``to_k_ip``, ``to_*_sp``,
 ``alpha_blender.mix_factor``) sit directly under their attention module, as
 in the flax tree. Works for the UNet and the VAE trees;
-:func:`deform_params_from_flax` carries the 4D deformation field's.
+:func:`clip_from_flax` carries the CLIP text and vision towers' trees to the
+transformers names, and :func:`deform_params_from_flax` the 4D deformation
+field's.
 """
 
 from __future__ import annotations
@@ -102,4 +104,44 @@ def deform_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
         if path[-1] == "kernel":
             path, arr = path[:-1] + ("weight",), arr.T
         out[".".join(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+_CLIP_TOP = {
+    "text": {"token_embedding": "text_model.embeddings.token_embedding",
+             "position_embedding": "text_model.embeddings.position_embedding",
+             "final_layer_norm": "text_model.final_layer_norm"},
+    "vision": {"class_embedding": "vision_model.embeddings.class_embedding",
+               "patch_embedding": "vision_model.embeddings.patch_embedding",
+               "position_embedding": "vision_model.embeddings.position_embedding",
+               "pre_layrnorm": "vision_model.pre_layrnorm",
+               "post_layernorm": "vision_model.post_layernorm",
+               "visual_projection": "visual_projection"},
+}
+
+
+def clip_from_flax(params: Mapping[str, Any], tower: str) -> Dict[str, torch.Tensor]:
+    """The JAX ``CLIPTextModel`` (``tower="text"``) or
+    ``CLIPVisionModelWithProjection`` (``"vision"``) params → the port
+    tower's state dict: ``layers_{i}`` → ``<tower>_model.encoder.layers.{i}``,
+    ``mlp_fc1`` → ``mlp.fc1``, the raw tables ``position_embedding`` →
+    ``...position_embedding.weight`` and ``class_embedding`` as it is."""
+    tree = params["params"] if set(params) == {"params"} else params
+    top = _CLIP_TOP[tower]
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree):
+        arr = np.array(value, dtype=np.float32)
+        head = path[0]
+        m = re.fullmatch(r"layers_(\d+)", head)
+        if m:
+            mods = [f"{tower}_model.encoder.layers.{m[1]}"] + [
+                s.replace("mlp_", "mlp.") for s in path[1:-1]]
+            leaf, arr = _convert_leaf(path[-1], arr)
+        elif head in ("position_embedding", "class_embedding"):
+            mods, leaf = [top[head]], ("weight" if head == "position_embedding" else None)
+        else:
+            mods = [top[head]] + list(path[1:-1])
+            leaf, arr = _convert_leaf(path[-1], arr)
+        name = ".".join(mods + ([leaf] if leaf else []))
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

@@ -1,5 +1,5 @@
-"""Camera batches (host-side NumPy): the part of
-``animate3d_tpu/data/cameras.py`` stage 1 and its evaluation use.
+"""Camera batches (host-side NumPy): the port of
+``animate3d_tpu/data/cameras.py``.
 
 ``fixed_view_cameras`` is the multi-image dataset's 4 training views x F
 frames (elevation 15°, azimuths 0/90/180/270, distance 3, fovy 40°),
@@ -7,21 +7,54 @@ view-major, with ``timestamps = linspace(-1, 1, F)`` per view. The
 evaluation batches: :func:`val_orbit_cameras` (the ``--validate`` orbit
 video) and :func:`testset_grid_cameras` (the ``testset`` metrics grid).
 :func:`gs_cameras_from_batch` turns a batch into the rasterizer's stacked
-camera tensors. The batch holds what the rasterizer and the loss read; the
-reference's rays and MVP matrices, which only the random-camera sampler's
-consumers read, are not built.
+camera tensors. :class:`HybridRandomCameraSampler` is the refine stage's
+random 4-view x F-frame SDS batch, drawn from ``np.random.default_rng(seed)``
+in the JAX sampler's order, so one seed gives the same cameras in both
+packages. The batch holds what the rasterizer and the losses read; the
+reference's rays and MVP matrices, which nothing in either package's 4D
+stage reads, are not built.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from animate3d_tpu_torch.core.registry import register
 from animate3d_tpu_torch.ops.rasterize import GSCameraArrays
 from animate3d_tpu_torch.utils import camera as camu
+
+
+@dataclass
+class RandomCameraConfig:
+    batch_size: int = 64
+    n_view: int = 4
+    total_frame: int = 16
+    width: int = 256
+    height: int = 256
+    eval_width: int = 512
+    eval_height: int = 512
+    elevation_range: Tuple[float, float] = (0.0, 30.0)
+    azimuth_range: Tuple[float, float] = (-180.0, 180.0)
+    camera_distance_range: Tuple[float, float] = (0.8, 1.0)  # relative
+    fovy_range: Tuple[float, float] = (15.0, 60.0)
+    zoom_range: Tuple[float, float] = (1.0, 1.0)
+    relative_radius: bool = True
+    camera_perturb: float = 0.0
+    center_perturb: float = 0.0
+    up_perturb: float = 0.0
+    light_distance_range: Tuple[float, float] = (7.5, 10.0)
+    eval_elevation_deg: float = 15.0
+    eval_camera_distance: float = 3.0
+    eval_fovy_deg: float = 40.0
+    n_val_views: int = 128
+    n_test_views: int = 120
+    progressive_until: int = 0
+    rays_d_normalize: bool = True
 
 
 def _camera_batch(c2w, fovy_deg, height, width, timestamps, elevation_deg, azimuth_deg,
@@ -37,6 +70,65 @@ def _camera_batch(c2w, fovy_deg, height, width, timestamps, elevation_deg, azimu
         "height": height,
         "width": width,
     }
+
+
+@register("hybrid-random-camera-datamodule")
+class HybridRandomCameraSampler:
+    """Random n_view x F-frame camera batches for SDS: each item's views
+    cover the azimuth range evenly from a shared random offset, the
+    elevation is uniform in angle or on the sphere (50/50), fovy, distance
+    (relative to the fovy) and zoom from their ranges; timestamps
+    ``linspace(-1, 1, F)`` per view."""
+
+    def __init__(self, cfg: RandomCameraConfig, seed: int = 0):
+        self.cfg = cfg
+        self.rng = np.random.default_rng(seed)
+        self.elevation_range = list(cfg.elevation_range)
+        self.azimuth_range = list(cfg.azimuth_range)
+
+    def update_step(self, global_step: int) -> None:
+        """Progressive view widening from the eval elevation / azimuth 0."""
+        cfg = self.cfg
+        r = min(1.0, global_step / (cfg.progressive_until + 1))
+        self.elevation_range = [
+            (1 - r) * cfg.eval_elevation_deg + r * cfg.elevation_range[0],
+            (1 - r) * cfg.eval_elevation_deg + r * cfg.elevation_range[1]]
+        self.azimuth_range = [r * cfg.azimuth_range[0], r * cfg.azimuth_range[1]]
+
+    def sample(self) -> Dict[str, np.ndarray]:
+        cfg, rng = self.cfg, self.rng
+        nv, nf = cfg.n_view, cfg.total_frame
+        nvf = nv * nf
+        if cfg.batch_size % nvf:
+            raise ValueError(f"random_camera.batch_size {cfg.batch_size} is not a multiple "
+                             f"of n_view x total_frame = {nvf}")
+        rb = cfg.batch_size // nvf
+        if rng.random() < 0.5:
+            elev_deg = rng.uniform(*self.elevation_range, size=rb)
+        else:
+            lo, hi = np.deg2rad(self.elevation_range)
+            elev_deg = np.rad2deg(np.arcsin(rng.uniform(np.sin(lo), np.sin(hi), size=rb)))
+        elev_deg = np.repeat(elev_deg, nvf)
+        az_span = self.azimuth_range[1] - self.azimuth_range[0]
+        azim_deg = ((rng.random(rb)[:, None] + np.arange(nv)[None, :]) / nv * az_span
+                    + self.azimuth_range[0]).reshape(-1)
+        azim_deg = np.repeat(azim_deg, nf)
+        fovy_deg = np.repeat(rng.uniform(*cfg.fovy_range, size=rb), nvf)
+        dist = np.repeat(rng.uniform(*cfg.camera_distance_range, size=rb), nvf)
+        if cfg.relative_radius:
+            dist = dist / np.tan(0.5 * np.deg2rad(fovy_deg))
+        zoom = np.repeat(rng.uniform(*cfg.zoom_range, size=rb), nvf)
+        fovy_deg = fovy_deg * zoom
+        pos = camu.spherical_camera_position(elev_deg, azim_deg, dist)
+        pos = pos + rng.uniform(-cfg.camera_perturb, cfg.camera_perturb, size=pos.shape)
+        center = rng.normal(0, cfg.center_perturb, size=pos.shape) \
+            if cfg.center_perturb > 0 else np.zeros_like(pos)
+        up = np.array([0.0, 0.0, 1.0]) + (
+            rng.normal(0, cfg.up_perturb, size=3) if cfg.up_perturb > 0 else 0.0)
+        c2w = camu.look_at_c2w(pos, center=center, up=tuple(up))
+        timestamps = np.tile(np.linspace(-1.0, 1.0, nf), rb * nv)
+        return _camera_batch(c2w, fovy_deg, cfg.height, cfg.width, timestamps, elev_deg,
+                             azim_deg, dist)
 
 
 def fixed_view_cameras(elevation_deg: float = 15.0,

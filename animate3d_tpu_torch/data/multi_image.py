@@ -3,20 +3,25 @@
 
 A flat directory of RGBA frames numbered ``view·F + frame``, sorted
 numerically; the fixed training cameras; one whole-video batch with rgb
-(N·F, H, W, 3), a bool mask (N·F, H, W, 1), cameras and timestamps. The
-random-camera sampler (``use_random_camera``, refine only) is not ported.
+(N·F, H, W, 3), a bool mask (N·F, H, W, 1), cameras and timestamps; with
+``use_random_camera`` (refine), ``batch(step)`` also holds the SDS batch of
+the random-camera sampler under ``random_camera``.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
 import numpy as np
 
 from animate3d_tpu_torch.core.registry import register
-from animate3d_tpu_torch.data.cameras import fixed_view_cameras
+from animate3d_tpu_torch.data.cameras import (
+    HybridRandomCameraSampler,
+    RandomCameraConfig,
+    fixed_view_cameras,
+)
 
 
 @dataclass
@@ -31,6 +36,8 @@ class MultiImageConfig:
     n_view: int = 4
     total_frame: int = 16
     use_random_camera: bool = False
+    rays_d_normalize: bool = False
+    random_camera: RandomCameraConfig = field(default_factory=RandomCameraConfig)
 
 
 def load_rgba_frames(image_root: str, height: int, width: int
@@ -53,20 +60,20 @@ def load_rgba_frames(image_root: str, height: int, width: int
 
 @register("simple-multi-image-datamodule")
 class MultiImageDataset:
-    """The fixed whole-video batch of stage-1 reconstruction."""
+    """The fixed whole-video batch, and per step the random-camera batch."""
 
     @classmethod
     def from_config(cls, data_cfg, seed: int = 0):
         from animate3d_tpu_torch.core.config import parse_structured
 
         d = {k: v for k, v in dict(data_cfg).items() if k in MultiImageConfig.__dataclass_fields__}
+        rc = d.get("random_camera")
+        if isinstance(rc, dict):
+            d["random_camera"] = parse_structured(RandomCameraConfig, {
+                k: v for k, v in rc.items() if k in RandomCameraConfig.__dataclass_fields__})
         return cls(parse_structured(MultiImageConfig, d), seed=seed)
 
     def __init__(self, cfg: MultiImageConfig, seed: int = 0):
-        if cfg.use_random_camera:
-            raise NotImplementedError(
-                "data.use_random_camera (the refine stage's random-camera sampler) is not "
-                "ported yet")
         self.cfg = cfg
         self.cameras = fixed_view_cameras(
             elevation_deg=cfg.default_elevation_deg, azimuths_deg=tuple(cfg.default_azimuth_deg),
@@ -77,10 +84,14 @@ class MultiImageDataset:
         if self.rgbs.shape[0] != expected:
             raise ValueError(f"expected {expected} frames (view-major) in {cfg.image_root}, "
                              f"got {self.rgbs.shape[0]}")
-        self.random_sampler = None
+        self.random_sampler = (HybridRandomCameraSampler(cfg.random_camera, seed=seed)
+                               if cfg.use_random_camera else None)
 
     def batch(self, global_step: int = 0) -> Dict[str, np.ndarray]:
         out = dict(self.cameras)
         out["rgb"] = self.rgbs
         out["mask"] = self.masks
+        if self.random_sampler is not None:
+            self.random_sampler.update_step(global_step)
+            out["random_camera"] = self.random_sampler.sample()
         return out

@@ -6,7 +6,11 @@ that tests can feed the same numpy noise to both sides (``jax.random`` and
 the denoise loop :meth:`MVSampler.denoise` (a Python loop where JAX ran
 ``lax.scan``) and the FreeInit re-noise step
 :meth:`MVSampler.freeinit_renoise`. :meth:`MVSampler.sample` draws the
-noise from a ``torch.Generator`` and chains them.
+noise from a ``torch.Generator`` and chains them. With
+``i2v_similarity_strength`` set (the reference's i2v similarity init), the
+run starts from frame 0's latents noised to the step that strength
+selects, each later frame kept clean with ``i2v_similarity_origin_prob``,
+and only the remaining steps run.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ class MVSamplerConfig:
     freeinit_enabled: bool = True
     freeinit_num_iters: int = 3
     i2v_cond_time_zero: bool = False
+    i2v_similarity_strength: Optional[float] = None  # None: pure noise start
+    i2v_similarity_origin_prob: float = 0.0
     camera_elevation: float = 15.0
 
     @property
@@ -75,10 +81,34 @@ class MVSampler:
         return (bn, cfg.num_frames - 1, cfg.latent_height, cfg.latent_width,
                 cfg.latent_channels)
 
-    def prepare_initial_latents(self, noise: torch.Tensor,
-                                first_frame_latents: torch.Tensor) -> torch.Tensor:
-        """Clean frame 0 followed by the noise for frames 1..F-1."""
-        return torch.cat([first_frame_latents, noise], dim=1)
+    def prepare_initial_latents(self, noise: torch.Tensor, first_frame_latents: torch.Tensor,
+                                origin_uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Clean frame 0 followed by frames 1..F-1: the noise, or with the
+        similarity init frame 0's latents noised to the start step, each
+        frame replaced by them where ``origin_uniform`` (B·N, F-1, 1, 1, 1)
+        in [0, 1) falls under ``i2v_similarity_origin_prob``."""
+        cfg = self.cfg
+        if cfg.i2v_similarity_strength is None:
+            return torch.cat([first_frame_latents, noise], dim=1)
+        t_start = self.scheduler.timesteps(cfg.num_inference_steps)[self._similarity_t_start()]
+        cond = first_frame_latents.expand(-1, noise.shape[1], -1, -1, -1)
+        blurred = self.scheduler.add_noise(cond, noise, t_start)
+        mask = (origin_uniform < cfg.i2v_similarity_origin_prob).float()
+        return torch.cat([first_frame_latents, mask * cond + (1.0 - mask) * blurred], dim=1)
+
+    def _similarity_t_start(self) -> int:
+        cfg = self.cfg
+        init_t = min(int(cfg.num_inference_steps * cfg.i2v_similarity_strength),
+                     cfg.num_inference_steps)
+        return max(cfg.num_inference_steps - init_t, 0)
+
+    def active_timesteps(self) -> torch.Tensor:
+        """The DDIM timesteps the run takes (the last ones only, with the
+        similarity init)."""
+        ts = self.scheduler.timesteps(self.cfg.num_inference_steps)
+        if self.cfg.i2v_similarity_strength is not None:
+            ts = ts[self._similarity_t_start():]
+        return ts
 
     def denoise(self, latents: torch.Tensor, first_frame_latents: torch.Tensor,
                 text_ctx: torch.Tensor, camera: torch.Tensor,
@@ -131,8 +161,11 @@ class MVSampler:
             img2 = torch.cat([torch.zeros_like(image_embeds), image_embeds], dim=0)
         shape = self.noise_shape(bn)
         initial_noise = torch.randn(shape, generator=generator, device=self.device)
-        latents = self.prepare_initial_latents(initial_noise, first_frame_latents)
-        timesteps = self.scheduler.timesteps(cfg.num_inference_steps)
+        origin_u = None
+        if cfg.i2v_similarity_strength is not None:
+            origin_u = torch.rand(shape[:2] + (1, 1, 1), generator=generator, device=self.device)
+        latents = self.prepare_initial_latents(initial_noise, first_frame_latents, origin_u)
+        timesteps = self.active_timesteps()
         num_iters = cfg.freeinit_num_iters if cfg.freeinit_enabled else 1
         for it in range(num_iters):
             if cfg.freeinit_enabled and it > 0:

@@ -1,5 +1,5 @@
-"""Animate3D 4D optimisation system, stage-1 motion reconstruction: the port
-of the recon half of ``animate3d_tpu/systems/animate3d.py``.
+"""Animate3D 4D optimisation system (stage-1 motion reconstruction and
+stage-2 4D-SDS refine): the port of ``animate3d_tpu/systems/animate3d.py``.
 
   * progressive frame unlocking: ``start = step // progressive_iter_per_frame``
     ('normal': frames 1..start+1; 'light': one random past frame + the
@@ -22,6 +22,7 @@ stage's guidance (``load_guidance``) is not ported yet: it raises.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import random as pyrandom
 from dataclasses import dataclass, field
@@ -149,11 +150,13 @@ def make_deform_optimizer(field_: DeformationField, cfg: Animate3DConfig) -> Def
 
 class StepDraws(NamedTuple):
     """A step's given random draws, each optional: ``render`` (the
-    renderer's :class:`RenderDraws`) and ``arap_idx`` (the ARAP node
-    sample); what is not given comes from the system's generator."""
+    renderer's :class:`RenderDraws`), ``arap_idx`` (the ARAP node sample)
+    and ``guidance`` (the SDS loss's ``GuidanceDraws``); what is not given
+    comes from the system's generator."""
 
     render: Optional[RenderDraws] = None
     arap_idx: Optional[torch.Tensor] = None
+    guidance: Optional[Any] = None  # pipelines.guidance.GuidanceDraws
 
 
 @register("gaussian-splatting-animate3d-system")
@@ -162,13 +165,12 @@ class Animate3DSystem:
     its optimizer, on ``device`` (``cuda`` unless asked for the CPU)."""
 
     def __init__(self, cfg: Animate3DConfig, state: Optional[GaussianState] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, guidance=None,
+                 guidance_inputs: Optional[Dict[str, Any]] = None):
         self.device = resolve_device(device)
-        if cfg.load_guidance:
-            raise NotImplementedError(
-                "system.load_guidance=true is stage-2 refine (4D-SDS guidance through the "
-                "MV-VDM), not ported yet: ROADMAP.md §1 item 12")
         self.cfg = cfg
+        self.guidance = guidance
+        self.guidance_inputs = guidance_inputs or {}
         if state is None:
             if not cfg.geometry_convert_from:
                 raise ValueError("need system.geometry.geometry_convert_from (a .ply) or a state")
@@ -234,7 +236,16 @@ class Animate3DSystem:
                 invert_bg_prob=renderer.get("invert_bg_prob", 1.0),
                 first_frame_trainable=renderer.get("first_frame_trainable", False)),
             loss=parse_structured(LossConfig, loss))
-        return cls(acfg, seed=seed, device=device)
+        guidance = guidance_inputs = None
+        if acfg.load_guidance:
+            if not (cfg.data.get("use_random_camera", False)):
+                raise ValueError("system.load_guidance=true (refine) renders the SDS batch "
+                                 "of data.random_camera: set data.use_random_camera=true")
+            from animate3d_tpu_torch.pipelines.guidance import build_guidance_from_config
+
+            guidance, guidance_inputs = build_guidance_from_config(s, acfg, device)
+        return cls(acfg, seed=seed, device=device, guidance=guidance,
+                   guidance_inputs=guidance_inputs)
 
     # -- progressive frame schedule (host side) --------------------------------
 
@@ -260,10 +271,13 @@ class Animate3DSystem:
 
     def lambdas(self, step: int) -> Dict[str, float]:
         lc = self.cfg.loss
-        return {k: float(C(getattr(lc, k), 0, step))
-                for k in ("lambda_rgb", "lambda_mask", "lambda_arap", "lambda_sds",
-                          "lambda_position", "lambda_sparsity", "lambda_scales",
-                          "lambda_tv_loss")}
+        out = {k: float(C(getattr(lc, k), 0, step))
+               for k in ("lambda_rgb", "lambda_mask", "lambda_arap", "lambda_sds",
+                         "lambda_position", "lambda_sparsity", "lambda_scales",
+                         "lambda_tv_loss")}
+        if self.guidance is not None:
+            out["g_min_step"], out["g_max_step"] = self.guidance.min_max_step(step)
+        return out
 
     # -- loss --------------------------------------------------------------------
 
@@ -340,7 +354,7 @@ class Animate3DSystem:
         cameras, timestamps = batch["gs_cameras"], np.asarray(batch["timestamps"])
         rgb, mask = batch["rgb"], batch["mask"]
         active = np.nonzero(frame_w)[0]
-        if cfg.sample_strategy == "light":
+        if cfg.sample_strategy == "light" and not self.do_guidance:
             if len(active) == 1:
                 active = np.array([active[0], active[0]])
             idx = np.concatenate([v * cfg.n_frame + active for v in range(cfg.n_view)])
@@ -349,7 +363,8 @@ class Animate3DSystem:
         bucket = 2
         while bucket < len(active):
             bucket *= 2
-        if not cfg.frame_bucketing or bucket > cfg.n_frame // 2:
+        if cfg.sample_strategy != "normal" or not cfg.frame_bucketing \
+                or bucket > cfg.n_frame // 2:
             return cameras, timestamps, rgb, mask, frame_w
         pad = np.full(bucket - len(active), active[-1], np.int64)
         active_p = np.concatenate([active, pad])
@@ -362,16 +377,89 @@ class Animate3DSystem:
         return self._bucket + (np.concatenate([frame_w[active],
                                                np.zeros(len(pad), np.float32)]),)
 
-    def step(self, batch: Dict[str, Any], draws: Optional[StepDraws] = None
-             ) -> Dict[str, torch.Tensor]:
+    @property
+    def do_guidance(self) -> bool:
+        return self.cfg.load_guidance and self.guidance is not None
+
+    def _render_guidance_rgb(self, guidance_batch: Dict[str, Any]) -> torch.Tensor:
+        """The SDS batch's renders (B·N·F, s, s, 3) at the guidance's size
+        ``s``, each item deformed at its frame (scales too), no draws."""
+        cfg = self.cfg
+        res = self.guidance.cfg.image_size
+        rcfg = dataclasses.replace(cfg.renderer, height=res, width=res)
+        ts = torch.as_tensor(guidance_batch["timestamps"], dtype=torch.float32,
+                             device=self.device)
+        frame_ts = ts[:cfg.n_frame]
+        deformed = self.field.deform_frames(self.state, frame_ts, True)
+
+        def deform_fn(items):
+            fi = torch.argmin(torch.abs(frame_ts[None, :] - items[:, None]), dim=1)
+            return tuple(d[fi] for d in deformed)
+
+        return render_batch(self.state, deform_fn, guidance_batch["cameras"], ts, rcfg).rgb
+
+    def sds_loss(self, guidance_batch: Dict[str, Any], lambdas: Dict[str, float],
+                 draws=None) -> torch.Tensor:
+        """The 4D-SDS loss of the SDS batch, differentiable in the field's
+        parameters (render → VAE encode → loss)."""
+        from animate3d_tpu_torch.pipelines.guidance import GuidanceDraws
+
+        g = self.guidance
+        draws = draws or GuidanceDraws()
+        rgb = self._render_guidance_rgb(guidance_batch)
+        bn = rgb.shape[0] // g.cfg.n_frame
+        t_video = draws.t_video if draws.t_video is not None else g._sample_t(
+            bn, (lambdas["g_min_step"], lambdas["g_max_step"]), self.generator, self.device)
+        cam16 = g.camera16(guidance_batch["c2w"], bn, g.cfg.n_frame).to(self.device)
+        return g.loss(rgb, guidance_batch["text_cond"], guidance_batch["text_uncond"], cam16,
+                      guidance_batch["image_embeds"], t_video, draws, self.generator)
+
+    def sds_gradients(self, guidance_batch: Dict[str, Any], lambdas: Dict[str, float],
+                      draws=None):
+        """(loss_sds, {parameter name: gradient}) of the SDS loss alone."""
+        loss = self.sds_loss(guidance_batch, lambdas, draws)
+        names, params = zip(*self.field.named_parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), {n: (gr if gr is not None else torch.zeros_like(p))
+                               for n, p, gr in zip(names, params, grads)}
+
+    @torch.no_grad()
+    def guidance_preview(self, guidance_batch: Dict[str, Any], num_steps: int = 25,
+                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Guidance-eval: the SDS batch's renders through the frozen
+        teacher's preview sampler from the current largest annealed t;
+        (B·N, F, H, W, 3) in [0, 1]."""
+        if self.guidance is None:
+            raise ValueError("guidance_preview needs system.load_guidance=true")
+        g = guidance_batch
+        rgb = self._render_guidance_rgb(g)
+        _, mx = self.guidance.min_max_step(self.global_step)
+        return self.guidance.preview_from_rgb(
+            self.guidance_inputs["vae_decode"], rgb, g["text_cond"], g["text_uncond"],
+            g["c2w"], g["image_embeds"], int(mx), num_steps, noise=noise,
+            generator=self.generator)
+
+    def step(self, batch: Dict[str, Any], draws: Optional[StepDraws] = None,
+             guidance_batch: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """One optimisation step on the whole-video batch (``gs_cameras``,
         ``timestamps``, ``rgb`` (B, H, W, 3), ``mask`` (B, H, W, 1) on the
-        system's device). Returns the metrics as device scalars (no sync)."""
+        system's device) and, in refine, the SDS batch ``guidance_batch``
+        (``cameras``, ``timestamps``, ``c2w``, ``text_cond``, ``text_uncond``,
+        ``image_embeds``). Returns the metrics as device scalars (no sync)."""
         cameras, timestamps, rgb, mask, frame_w = self.step_batch(batch)
         dev = self.device
+        draws = draws or StepDraws()
+        lambdas = self.lambdas(self.global_step)
         loss, metrics = self.loss(cameras, torch.as_tensor(timestamps, device=dev), rgb,
                                   mask.float(), torch.as_tensor(frame_w, device=dev),
-                                  self.lambdas(self.global_step), draws)
+                                  lambdas, draws)
+        if self.do_guidance:
+            if guidance_batch is None:
+                raise ValueError("refine (load_guidance) needs the step's guidance_batch")
+            loss_sds = self.sds_loss(guidance_batch, lambdas, draws.guidance)
+            loss = loss + lambdas["lambda_sds"] * loss_sds
+            metrics["loss_sds"] = loss_sds
+            metrics["loss"] = loss
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()

@@ -24,15 +24,18 @@ def spherical_camera_position(elevation_deg, azimuth_deg, distance) -> np.ndarra
                      dist * np.sin(elev)], axis=-1)
 
 
-def look_at_c2w(camera_position: np.ndarray, up=(0.0, 0.0, 1.0)) -> np.ndarray:
-    """Batched look-at-origin c2w (..., 4, 4), OpenGL column convention."""
+def look_at_c2w(camera_position: np.ndarray, center=None, up=(0.0, 0.0, 1.0)) -> np.ndarray:
+    """Batched look-at c2w (..., 4, 4) towards ``center`` (default the
+    origin), OpenGL column convention."""
     pos = np.asarray(camera_position, dtype=np.float64)
+    if center is None:
+        center = np.zeros_like(pos)
     up_v = np.broadcast_to(np.asarray(up, dtype=np.float64), pos.shape)
 
     def _norm(v):
         return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-12)
 
-    lookat = _norm(-pos)
+    lookat = _norm(center - pos)
     right = _norm(np.cross(lookat, up_v))
     up_o = _norm(np.cross(right, lookat))
     c2w = np.zeros(pos.shape[:-1] + (4, 4), dtype=np.float64)

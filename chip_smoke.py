@@ -61,11 +61,23 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    (the 120-frame orbit at 512^2) and ``--export`` (16 trajectories and the
    report);
 9. fields: the recon CLI again at 64^2 (kernel G's route), its timed
-   full-schedule step and one loss + backward through G against plain ops.
+   full-schedule step and one loss + backward through G against plain ops;
+10. refine: a seeded artifact root (the full-width CLIP text and vision
+   towers in bf16, the byte-level tokenizer), then the refine CLI with
+   configs/animate3d/refine_frame_16.yaml as it is (recon renders at
+   1024^2, an SDS batch of 64 renders at 256^2, guidance UNet and VAE
+   seeded, both towers from the root) chained from phase 7's trial, 200
+   steps cut to 3, plus its testset pass, launch counters zeroed just
+   before and read just after (A, B, C and H exactly); timed refine steps
+   with the peak memory, one profiled step with the shares of A, B, C, H,
+   the VAE and CLIP; one refine loss + backward through the kernels against
+   the same step on the plain versions (same draws); then phase 3's
+   sampling CLI with the root, the prompt and the conditioning renders
+   through the towers.
 
-The summary lines give the step times with kernel B's, C's, E's, G's and
-H's share of the profiled device time, each beside the card's name and
-power limit. The line before the last is a JSON object with one row per
+The summary lines give the step times (refine's too) with kernel B's,
+C's, E's, G's and H's share of the profiled device time, each beside the
+card's name and power limit. The line before the last is a JSON object with one row per
 kernel and path shape; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -513,10 +525,12 @@ def kernel_phase() -> list:
 
 
 def e2e_phase(tmp: str, res: int = 256, per_forward: dict = PER_FORWARD,
-              tag: str = "e2e") -> dict:
+              tag: str = "e2e", root=None) -> dict:
     """The sampling CLI at full width and ``res`` x ``res``, launch counters
     zeroed just before and read just after: at least ``per_forward`` a UNet
-    forward at 256^2 (phase 3), exactly that at 512^2 (phase 3b)."""
+    forward at 256^2 (phase 3), exactly that at 512^2 (phase 3b). With an
+    artifact ``root`` (phase 10b), the prompt goes through the tokenizer and
+    the text tower and the conditioning renders through the vision tower."""
     from PIL import Image
 
     from animate3d_tpu_torch.cli.inference import main as cli_main
@@ -530,10 +544,11 @@ def e2e_phase(tmp: str, res: int = 256, per_forward: dict = PER_FORWARD,
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
+    towers = ["--flax_params", root, "--prompt", "a toy"] if root else []
     out = cli_main(["--model_size", "full", "-W", str(res), "-H", str(res), "-N", "4",
                     "-L", "16", "--steps", str(steps), "--freeinit_iters", str(iters),
                     "--seed", "0", "--ip_image_root", tmp,
-                    "--output_dir", os.path.join(tmp, f"out{res}")])
+                    "--output_dir", os.path.join(tmp, f"out{res}{tag}"), *towers])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     totals = _build.launch_totals()
@@ -547,6 +562,13 @@ def e2e_phase(tmp: str, res: int = 256, per_forward: dict = PER_FORWARD,
                     for k, n in per_forward.items())
     ok = (tuple(lat.shape) == (4, 16, res // 8, res // 8, 4)
           and bool(torch.isfinite(lat).all()) and gif_frames == 16 and counts_ok)
+    if root:
+        ok = (ok and {"text_encoder", "image_encoder"} <= out["loaded"]
+              and float(out["text_cond"].abs().sum()) > 0
+              and float(out["image_embeds"].abs().sum()) > 0)
+        print(f"[{tag}] towers loaded {sorted(out['loaded'])}; text_cond "
+              f"{tuple(out['text_cond'].shape)}, image_embeds {tuple(out['image_embeds'].shape)}; "
+              f"conditioning + sampling + decode {out['run_seconds']:.2f} s")
     print(f"[{tag}] full width {res}x{res}, 4 views x 16 frames, {steps} steps x {iters} "
           f"FreeInit iteration(s): wall {wall:.2f} s, step seconds "
           + ", ".join(f"{t:.4f}" for t in out["step_seconds"])
@@ -556,7 +578,7 @@ def e2e_phase(tmp: str, res: int = 256, per_forward: dict = PER_FORWARD,
         print(f"[{tag}] launches {k}: {totals[k]} (expected {n} per UNet forward x "
               f"{unet_calls} forwards = {n * unet_calls})")
     return dict(ok=ok, per_shape=per_shape, step_s=out["step_seconds"][1],
-                wall_s=wall, peak_gb=peak_gb)
+                wall_s=wall, peak_gb=peak_gb, run_s=out["run_seconds"])
 
 
 def _family(name: str) -> str:
@@ -635,7 +657,7 @@ def reference_phase() -> dict:
     from animate3d_tpu_torch.ops import _build, routing
     from animate3d_tpu_torch.utils.camera import get_camera
 
-    unet, _ = build_models("full", 4, "cuda", seed=0)
+    unet, *_ = build_models("full", 4, "cuda", seed=0, clip=False)
     gen = torch.Generator(device="cuda").manual_seed(1)
     lat = torch.randn((8, 16, 32, 32, 4), generator=gen, device="cuda")
     text = 0.5 * torch.randn((8, 77, 768), generator=gen, device="cuda")
@@ -837,7 +859,7 @@ def train_phase(tmp: str) -> dict:
     expected = {k: n * TRAIN_STEPS for k, n in PER_TRAIN_STEP.items()}
 
     unet, masters = res["unet"], res["optimizer"].masters
-    fresh, _ = build_models("full", 4, "cuda", seed=0, train=True)
+    fresh, *_ = build_models("full", 4, "cuda", seed=0, train=True, clip=False)
     params = dict(unet.named_parameters())
     frozen_same = moved = 0
     for name, p0 in fresh.named_parameters():
@@ -888,7 +910,8 @@ def train_reference_phase() -> dict:
     )
     from animate3d_tpu_torch.utils.camera import get_camera
 
-    unet, _ = build_models("full", 4, "cuda", seed=0, train=True, gradient_checkpointing=True)
+    unet, *_ = build_models("full", 4, "cuda", seed=0, train=True, gradient_checkpointing=True,
+                            clip=False)
     masters = cast_frozen_bf16(unet)
     gen = torch.Generator(device="cuda").manual_seed(4)
     batch = TrainBatch(
@@ -944,6 +967,17 @@ RECON_N, RECON_VIEWS, RECON_FRAMES, RECON_RES, RECON_EVAL = 20000, 4, 16, 256, 5
 FIELDS_RES = 64  # the largest image of kernel G's route: 16 tiles of 16^2
 TESTSET_RES, TESTSET_VIEWS, ORBIT_FRAMES = 1024, 12, 120
 RECON_STEPS = 3
+REFINE_YAML = "configs/animate3d/refine_frame_16.yaml"
+REFINE_RES, REFINE_STEPS = 1024, 3
+# per refine step at the shipped sizes, in its first 100 steps (one or two
+# unlocked frames: bucket 2): the SDS batch's CFG UNet forward at 256^2 under
+# attention_backend("flash") runs A, B and C as a sampling forward does (the
+# forced flash takes the sites whose Sk is a multiple of 512, the ones auto
+# takes at this batch, and still packs the temporal ones); kernel H runs one
+# launch each way for the 8 recon renders at 1024^2 and one each way for the
+# 64 SDS renders at 256^2
+PER_REFINE_STEP = _per(flash_fwd=40, packed_attn=20, geglu=37, composite_coarse_fwd=2,
+                       composite_coarse_bwd=2)
 # f32 operations per (pixel, candidate) pair that H's and G's functions
 # need: evaluating a candidate's alpha (offsets, conic form, exp, gates)
 # takes 14; a live alpha adds 12 in the forward (weight, 4 channel sums,
@@ -1222,11 +1256,13 @@ def _bound_f32(ops: float, nbytes: float, f64_ops: float = 0.0):
 
 
 def composite_kernel_phase() -> list:
-    """Kernels H and G at every shape the stage-1 paths give them. H: the
-    step's renders at 256^2 (64 at the full schedule, 32 / 16 / 8 at the
-    frame buckets 8 / 4 / 2), forward and backward; forward only for the
-    four-view test's 64 renders at 512^2, the validation orbit's 120 at
-    512^2 and one 32-render call of the testset grid at 1024^2. G: the
+    """Kernels H and G at every shape the stage-1 and refine paths give them.
+    H: the step's renders at 256^2 (64 at the full schedule, 32 / 16 / 8 at
+    the frame buckets 8 / 4 / 2; refine's 64 SDS renders), and refine's 8
+    recon renders at 1024^2, forward and backward; forward only for the
+    four-view test's 64 renders at 512^2 (and refine's testset pass: calls
+    of 128 and 64 renders at 512^2), the validation orbit's 120 at 512^2
+    and one 32-render call of the testset grid at 1024^2. G: the
     fields route's step at 64^2 (64 and 8 renders), forward and backward,
     and the step's shape on dense synthetic tiles (:func:`_g_tiles`); H
     also on dense synthetic coarse tiles (:func:`_h_tiles`) at the recon
@@ -1250,7 +1286,15 @@ def composite_kernel_phase() -> list:
         n_ct = renders * 16
         rows += _composite_rows("H", label, fields[:n_ct].contiguous(),
                                 corig[:n_ct].contiguous(), gen)
+    # refine (phase 10): the recon renders at 1024^2 (bucket 2: 8 renders),
+    # forward and backward; its 64 SDS renders at 256^2 are the recon step's
+    del fields, corig
+    fields, corig = _raster_fields("coarse", fixed(REFINE_RES), 8)
+    rows += _composite_rows("H", "refine bucket 2, 8 renders at 1024^2", fields, corig, gen)
     for route, cams, renders, label in (
+            ("coarse", testset_grid_cameras(height=RECON_EVAL, width=RECON_EVAL,
+                                            total_frame=RECON_FRAMES),
+             128, "refine testset, one 128-render call at 512^2"),
             ("coarse", fixed(RECON_EVAL), 64, "test pass, 64 renders at 512^2"),
             ("coarse", val_orbit_cameras(ORBIT_FRAMES, height=RECON_EVAL, width=RECON_EVAL,
                                          total_frame=RECON_FRAMES),
@@ -1360,11 +1404,17 @@ def packed_flash_phase() -> dict:
     return dict(ok=ok, per_shape=per_shape)
 
 
-def _recon_workspace(tmp: str):
+def _recon_workspace(tmp: str, colour_seed=None):
     """The recon config's inputs, made from seed 0: the asset written as a
     .ply by the port, and 64 RGBA frames (4 views x 16, view-major
     ``{i}.png``) rendered by the port from the same asset, each frame under
-    its own translation (frame 0 static)."""
+    its own translation (frame 0 static). With ``colour_seed`` (refine,
+    phase 10), the same gaussians with SH colours drawn from that seed, as
+    ``asset_colour.ply`` and ``frames_colour/``: the recon asset's colour
+    is the background's gray, so its renders are nearly constant images,
+    on which the guidance VAE's GroupNorm (eps 1e-6) is degenerate (the
+    pixel gradient reaches 1e7 and the SDS gradient differs 80% between two
+    identical runs)."""
     from PIL import Image
 
     from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
@@ -1372,7 +1422,12 @@ def _recon_workspace(tmp: str):
     from animate3d_tpu_torch.rendering.renderer4d import Renderer4DConfig, render_batch
 
     st = _recon_state("cuda")
-    ply = os.path.join(tmp, "asset.ply")
+    tag = ""
+    if colour_seed is not None:
+        gen = torch.Generator(device="cuda").manual_seed(colour_seed)
+        st.features_dc.copy_(torch.randn(st.features_dc.shape, generator=gen, device="cuda"))
+        tag = "_colour"
+    ply = os.path.join(tmp, f"asset{tag}.ply")
     write_gaussian_ply(ply, st)
     shift = 0.03 * torch.randn((RECON_FRAMES, 3), generator=torch.Generator().manual_seed(1))
     shift = shift.cuda()
@@ -1390,12 +1445,12 @@ def _recon_workspace(tmp: str):
                            Renderer4DConfig(back_ground_color=(0.5, 0.5, 0.5)),
                            do_reconstruction=False)
     rgba = torch.cat([out.rgb, out.alpha[..., None]], -1).clamp(0, 1).mul(255).byte().cpu()
-    frames = os.path.join(tmp, "frames")
+    frames = os.path.join(tmp, f"frames{tag}")
     os.makedirs(frames)
     for i in range(b):
         Image.fromarray(rgba[i].numpy(), "RGBA").save(os.path.join(frames, f"{i}.png"))
-    print(f"[recon] workspace: {n} gaussians, {b} frames of {RECON_RES}^2, mean alpha "
-          f"{float(out.alpha.mean()):.3f}")
+    print(f"[recon] workspace{tag}: {n} gaussians, {b} frames of {RECON_RES}^2, mean alpha "
+          f"{float(out.alpha.mean()):.3f}, rgb std {float(out.rgb.std()):.4f}")
     return ply, frames
 
 
@@ -1681,6 +1736,268 @@ def eval_phase(tmp: str, ply: str, frames: str, trial: str) -> dict:
                 h_fwd_share=_share(fams, "kernel H fwd"))
 
 
+def _write_artifact_root(tmp: str) -> str:
+    """A seeded artifact root in the released layout: the full-width CLIP
+    text tower (SD1.5's: 12 layers, width 768) as
+    ``sd15/text_encoder/model.safetensors`` with the byte-level tokenizer
+    beside it, and the IP-Adapter's vision tower (ViT-H/14: 32 layers,
+    width 1280, projection 1024) as ``IP-Adapter/models/image_encoder/
+    model.safetensors``, both in bf16 (1.5 GB together). The UNet and the
+    VAE stay seeded: their loaders are held on the CPU."""
+    from animate3d_tpu_torch.convert.weights import write_safetensors
+    from animate3d_tpu_torch.models.clip import (
+        CLIPTextModel,
+        CLIPVisionModelWithProjection,
+    )
+    from animate3d_tpu_torch.models.factory import init_params
+    from animate3d_tpu_torch.utils.tokenizer import write_char_level_tokenizer
+
+    root = os.path.join(tmp, "weights")
+    t0 = time.perf_counter()
+    for i, (cls, sub) in enumerate(((CLIPTextModel, "sd15/text_encoder"),
+                                    (CLIPVisionModelWithProjection,
+                                     "IP-Adapter/models/image_encoder"))):
+        with torch.device("cuda"):
+            tower = cls()
+        init_params(tower, 30 + i)
+        os.makedirs(os.path.join(root, sub))
+        write_safetensors(os.path.join(root, sub, "model.safetensors"),
+                          {k: v.to(torch.bfloat16) for k, v in tower.state_dict().items()})
+        del tower
+    write_char_level_tokenizer(os.path.join(root, "sd15", "tokenizer"))
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    print(f"[refine] artifact root: text and vision towers at full width, bf16, "
+          f"{size / 2 ** 30:.2f} GiB written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def _refine_args(tmp: str, ply: str, frames: str, trial: str, root: str) -> list:
+    """The refine config's overrides: the prompt (the yaml's ???), the data
+    and output paths, ``system.weights`` (the recon trial's ckpts), the
+    artifact root."""
+    return ["system.prompt_processor.prompt=a toy", f"data.image_root={frames}",
+            f"system.geometry.geometry_convert_from={ply}", f"exp_root_dir={tmp}/refine",
+            f"system.weights={trial}/ckpts", f"system.guidance.flax_params_dir={root}"]
+
+
+def refine_phase(tmp: str, ply: str, frames: str, trial: str, root: str) -> dict:
+    """The refine CLI with configs/animate3d/refine_frame_16.yaml as it is
+    (recon renders at 1024^2, an SDS batch of 64 renders at 256^2, guidance
+    scale 5, t in [20, 200], the guidance UNet and VAE seeded, both CLIP
+    towers read from the artifact root) chained from the recon trial, 200
+    steps cut to REFINE_STEPS, then its testset pass (12 views x 16 frames
+    at 512^2, in calls of 128 and 64 renders), on the coloured copy of the
+    recon asset and its frames (``_recon_workspace(colour_seed=...)``);
+    launch counters zeroed just before and read just after, asserted
+    exactly."""
+    from animate3d_tpu_torch.cli.launch import main as launch_main
+    from animate3d_tpu_torch.ops import _build
+
+    args = ["--config", REFINE_YAML, "--train", *_refine_args(tmp, ply, frames, trial, root),
+            f"trainer.max_steps={REFINE_STEPS}"]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = launch_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals, per_shape = _build.launch_totals(), dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: n * REFINE_STEPS for k, n in PER_REFINE_STEP.items()}
+    expected["composite_coarse_fwd"] += 2  # the testset pass: 192 renders in 2 calls
+    system = res["system"]
+    _, _, text, vision = system.guidance.modules
+    trial_r = res["trial_dir"]
+    metrics = res["metrics"]
+    losses = [(m["loss"], m["loss_sds"]) for m in metrics]
+    images = os.listdir(os.path.join(trial_r, "save", "images"))
+    ckpt = os.path.exists(os.path.join(trial_r, "ckpts", f"step_{REFINE_STEPS}",
+                                       "checkpoint.pt"))
+    ok = (totals == expected and len(losses) == REFINE_STEPS and np.isfinite(losses).all()
+          and text is not None and vision is not None and ckpt
+          and float(system.guidance_inputs["text_cond"].abs().sum()) > 0
+          and len(images) == 12 * RECON_FRAMES and np.isfinite(res["rgb"]).all())
+    print(f"[refine] CLI --train refine_frame_16.yaml ({REFINE_STEPS} steps, chained from "
+          f"{os.path.basename(trial)}) + testset at 512^2: wall {wall:.2f} s; peak memory "
+          f"{peak_gb:.2f} GiB; (loss, loss_sds) "
+          + ", ".join(f"({a:.5f}, {b:.5f})" for a, b in losses)
+          + f"; towers loaded text {text is not None} vision {vision is not None}; "
+          f"{len(images)} test images; ckpt {ckpt}")
+    print(f"[refine] launches {totals} (expected {expected}: {PER_REFINE_STEP} per step, two "
+          f"forwards for the testset pass); per shape {per_shape}")
+    return dict(ok=ok, per_shape=per_shape, system=system, wall_s=wall, peak_gb=peak_gb,
+                args=args)
+
+
+def _refine_batches(system, args: list, n: int):
+    """The refine config's whole-video batch at 1024^2 on the card and ``n``
+    SDS batches of the random-camera sampler."""
+    from animate3d_tpu_torch.cli.launch import _guidance_batch
+    from animate3d_tpu_torch.core.config import load_config
+    from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
+    from animate3d_tpu_torch.data.multi_image import MultiImageDataset
+
+    cfg = load_config(REFINE_YAML, cli_args=args[3:], makedirs=False)
+    ds = MultiImageDataset.from_config(cfg.data, seed=cfg.seed)
+    raw = ds.batch(0)
+    batch = {"gs_cameras": gs_cameras_from_batch(raw, device="cuda"),
+             "timestamps": raw["timestamps"], "rgb": torch.as_tensor(raw["rgb"], device="cuda"),
+             "mask": torch.as_tensor(raw["mask"].astype(np.float32), device="cuda")}
+    return batch, [_guidance_batch(system, ds.batch(i + 1)["random_camera"]) for i in range(n)]
+
+
+def refine_timing_phase(system, args: list) -> dict:
+    """Seconds per refine step (host clock, ended by a synchronize; one
+    warm-up, then the mean of 3) in the first 100 steps' schedule (bucket
+    2), with the peak memory (the 1024^2 render keeps its gradients) and
+    the launch counters zeroed just before, read just after; one step under
+    torch.profiler (device time by kernel family), then the VAE encode
+    (forward + backward of the 64 SDS renders) and the vision tower (4
+    frames) alone, on CUDA events, as shares of the step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animate3d_tpu_torch.ops import _build
+
+    batch, gbs = _refine_batches(system, args, 5)
+    iters = 3
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    system.global_step = REFINE_STEPS
+    system.step(batch, guidance_batch=gbs[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        system.step(batch, guidance_batch=gbs[1 + i])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / iters
+    totals, per_shape = _build.launch_totals(), dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: n * (iters + 1) for k, n in PER_REFINE_STEP.items()}
+    print(f"[refine-time] seconds per refine step (8 recon renders at 1024^2 + 64 SDS renders "
+          f"at 256^2, CFG UNet forward, VAE encode of 64 frames with its backward, vision "
+          f"tower on 4 frames): {step_s:.4f}; peak memory {peak_gb:.2f} GiB; launches "
+          f"{totals} over {iters + 1} steps (expected {expected})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        system.step(batch, guidance_batch=gbs[4])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams = _print_profile("[refine-profile]", "one refine step", prof, wall_ms)
+
+    g = system.guidance
+    rgb = system._render_guidance_rgb(gbs[4]).detach()
+
+    def vae():
+        x = rgb.clone().requires_grad_(True)
+        mean, logvar = g._chunked_vae_encode(x * 2.0 - 1.0)
+        (mean.sum() + logvar.sum()).backward()
+
+    def clip():
+        with torch.no_grad():
+            g.image_encode(rgb.reshape(-1, system.cfg.n_frame, *rgb.shape[1:])[:, 0])
+
+    parts = {}
+    for name, fn in (("VAE encode fwd + bwd", vae), ("CLIP vision", clip)):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        parts[name] = start.elapsed_time(end)
+    busy = fams.get("busy")
+    share = lambda ms: f"{ms:.3f} ms" + (f" ({ms / busy:.1%} of {busy:.2f} ms busy)"
+                                         if busy else " (step device time not measured)")
+    shares = {"A": _share(fams, "kernel A flash_fwd"), "B": _share(fams, "kernel B packed_attn"),
+              "C": _share(fams, "kernel C geglu"),
+              "H": _share(fams, "kernel H fwd", "kernel H bwd"),
+              "VAE": share(parts["VAE encode fwd + bwd"]), "CLIP": share(parts["CLIP vision"])}
+    print("[refine-profile] shares of one refine step: " + "; ".join(
+        f"{k} {v}" for k, v in shares.items()))
+    return dict(ok=totals == expected and np.isfinite(step_s), per_shape=per_shape,
+                step_s=step_s, peak_gb=peak_gb, shares=shares, batch=batch, gb=gbs[4])
+
+
+def refine_reference_phase(system, batch, gb) -> dict:
+    """One refine step's loss and backward (recon renders at 1024^2, the SDS
+    batch) through the kernels against the same step on the plain versions,
+    with the same draws (render masks, ARAP sample, t, the posterior ε and
+    the frames' noise). Limits, the MV-VDM gates (the guidance UNet is
+    bf16): loss_sds and the total loss within 1e-2 relative, the
+    deformation gradient within 5e-2 relative L2. Then, reported only, the
+    SDS gradient's spread between two runs of the kernels, and on the blank
+    asset."""
+    from animate3d_tpu_torch.ops import _build, routing
+    from animate3d_tpu_torch.pipelines.guidance import GuidanceDraws
+    from animate3d_tpu_torch.rendering.renderer4d import make_draws
+    from animate3d_tpu_torch.systems.animate3d import StepDraws
+
+    system.global_step = REFINE_STEPS
+    cams, ts, rgb, mask, fw = system.step_batch(batch)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = system.state.num_points
+    lat = system.guidance.cfg.image_size // 8
+    bn, f = system.cfg.n_view, system.cfg.n_frame
+    draws = StepDraws(
+        render=make_draws(system.cfg.renderer, len(ts), n, gen, "cuda"),
+        arap_idx=torch.randint(0, n, (system.cfg.loss.arap_sample_num,), generator=gen,
+                               device="cuda"),
+        guidance=GuidanceDraws(
+            t_video=torch.tensor([117], device="cuda"),
+            posterior=torch.randn((bn * f, lat, lat, 4), generator=gen, device="cuda"),
+            noise=torch.randn((bn, f - 1, lat, lat, 4), generator=gen, device="cuda")))
+    params = [p for _, p in system.field.named_parameters()]
+    ts, fw = torch.as_tensor(ts, device="cuda"), torch.as_tensor(fw, device="cuda")
+    lambdas = system.lambdas(system.global_step)
+
+    def run():
+        _build.reset_launches()
+        loss, _ = system.loss(cams, ts, rgb, mask, fw, lambdas, draws)
+        loss_sds = system.sds_loss(gb, lambdas, draws.guidance)
+        flat = lambda gs: torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                                     for g, p in zip(gs, params)])
+        g_rec = flat(torch.autograd.grad(loss, params, allow_unused=True))
+        g_sds = flat(torch.autograd.grad(loss_sds, params, allow_unused=True))
+        torch.cuda.synchronize()
+        total = loss + lambdas["lambda_sds"] * loss_sds
+        return (float(loss_sds.detach()), float(total.detach()),
+                g_rec + lambdas["lambda_sds"] * g_sds, g_rec, g_sds, _build.launch_totals())
+
+    sds_k, tot_k, g_k, gr_k, gs_k, counts_k = run()
+    with routing.plain_ops():
+        sds_p, tot_p, g_p, gr_p, gs_p, counts_p = run()
+    sds_rel, tot_rel = abs(sds_k - sds_p) / abs(sds_p), abs(tot_k - tot_p) / abs(tot_p)
+    rel_l2 = lambda a, b: float((a - b).norm() / b.norm())
+    rel, rel_rec, rel_sds = rel_l2(g_k, g_p), rel_l2(gr_k, gr_p), rel_l2(gs_k, gs_p)
+    ok = (sds_rel <= 1e-2 and tot_rel <= 1e-2 and rel <= 5e-2
+          and bool(torch.isfinite(g_k).all()) and counts_k == PER_REFINE_STEP
+          and not any(counts_p.values()))
+    print(f"[refine-reference] refine loss + backward, kernels vs plain: loss_sds {sds_k:.7f} "
+          f"vs {sds_p:.7f} (relative {sds_rel:.3e}, tol 1e-2); total {tot_k:.7f} vs "
+          f"{tot_p:.7f} (relative {tot_rel:.3e}, tol 1e-2); deformation gradient "
+          f"({g_k.numel()} values) relative L2 {rel:.3e} (tol 5e-2), norms "
+          f"{float(g_k.norm()):.4e} vs {float(g_p.norm()):.4e}; its recon part {rel_rec:.3e}, "
+          f"its SDS part {rel_sds:.3e} (norm {float(gs_p.norm()):.4e} x lambda_sds "
+          f"{lambdas['lambda_sds']}); launches through the kernels {counts_k} (expected "
+          f"{PER_REFINE_STEP}), through the plain ops {counts_p}")
+    # reported, not gated: the SDS gradient's own spread (the kernels twice),
+    # then on a blank asset (SH colour 0: the background's gray, as the recon
+    # asset's), whose constant renders the VAE's GroupNorm scales without bound
+    gs_k2 = run()[4]
+    dc = system.state.features_dc.clone()
+    system.state.features_dc.zero_()
+    blank_1, blank_2 = run()[4], run()[4]
+    with routing.plain_ops():
+        blank_p = run()[4]
+    system.state.features_dc.copy_(dc)
+    print(f"[refine-reference] the SDS part's spread (reported): the kernels twice "
+          f"{rel_l2(gs_k2, gs_k):.3e}; on the blank asset (SH colour 0) its norm "
+          f"{float(blank_1.norm()):.4e} (coloured {float(gs_k.norm()):.4e}), the kernels twice "
+          f"{rel_l2(blank_2, blank_1):.3e}, kernels vs plain {rel_l2(blank_1, blank_p):.3e}")
+    return dict(ok=ok, rel=rel, sds_rel=sds_rel, tot_rel=tot_rel, rel_sds=rel_sds,
+                rel_rec=rel_rec)
+
+
 def _fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
@@ -1767,6 +2084,27 @@ def main() -> int:
             return _fail("the 64^2 recon step through kernel G disagrees with plain ops")
         if unchecked("fields", fields) or unchecked("fields-timing", f_timing):
             return 1
+        root = _write_artifact_root(tmp)
+        ply_c, frames_c = _recon_workspace(tmp, colour_seed=4)
+        refine = refine_phase(tmp, ply_c, frames_c, recon["trial"], root)
+        if not refine["ok"]:
+            return _fail("the refine CLI run failed its checks")
+        system = refine.pop("system")
+        r_timing = refine_timing_phase(system, refine["args"])
+        if not r_timing["ok"]:
+            return _fail("the timed refine steps failed their checks")
+        r_ref = refine_reference_phase(system, r_timing.pop("batch"), r_timing.pop("gb"))
+        if not r_ref["ok"]:
+            return _fail("the refine step through the kernels disagrees with plain ops")
+        del system
+        torch.cuda.empty_cache()
+        if unchecked("refine", refine) or unchecked("refine-timing", r_timing):
+            return 1
+        e2e_clip = e2e_phase(tmp, tag="e2e-clip", root=root)
+        if not e2e_clip["ok"]:
+            return _fail("the sampling run with both CLIP towers failed its checks")
+        if unchecked("sampling-clip", e2e_clip):
+            return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
     print(f"[summary] seconds per denoise step at 512x512: {e2e512['step_s']:.4f}; peak "
@@ -1796,6 +2134,16 @@ def main() -> int:
     print(f"[summary] kernel E (packed attention backward) in one train loss + backward: "
           f"{train_ref['e_share']}; kernel G in one {FIELDS_RES}^2 recon step: "
           f"{f_timing['g_share']}, its backward {f_timing['g_bwd_share']}; card {env['smi']}")
+    print(f"[summary] seconds per refine step (refine_frame_16.yaml: 8 recon renders at "
+          f"1024^2 with gradients, 64 SDS renders at 256^2, guidance UNet and VAE at full "
+          f"width, both CLIP towers at full width): {r_timing['step_s']:.4f}; peak memory "
+          f"{r_timing['peak_gb']:.2f} GiB; the refine CLI ({REFINE_STEPS} steps + testset at "
+          f"512^2) {refine['wall_s']:.2f} s; sampling with both towers in the loop: denoise "
+          f"step {e2e_clip['step_s']:.4f} s, conditioning + sampling + decode "
+          f"{e2e_clip['run_s']:.2f} s (2 steps), CLI wall {e2e_clip['wall_s']:.2f} s; card "
+          f"{env['smi']}")
+    print("[summary] shares of one refine step: " + "; ".join(
+        f"{k} {v}" for k, v in r_timing["shares"].items()) + f"; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",

@@ -350,16 +350,21 @@ def test_launch_train_and_test_on_cpu(workspace):
     np.testing.assert_allclose(again["rgb"], res["rgb"], atol=1e-6)
 
 
-@pytest.mark.parametrize("extra", [["--train", "trainer.mesh_dp=2"],
-                                   ["--train", "system.load_guidance=true"],
-                                   ["--validate", "system.weights=ckpts"],
-                                   ["--train", "system.weights=ckpts"]])
+REFUSED = {("--train", "trainer.mesh_dp=2"): NotImplementedError,
+           ("--train", "system.load_guidance=true"): ValueError,
+           ("--train", "system.weights=ckpts/step_9"): FileNotFoundError,
+           ("--train", "system.weights=ckpts"): FileNotFoundError}
+
+
+@pytest.mark.parametrize("extra", [list(k) for k in REFUSED])
 def test_launch_refuses_what_is_not_ported(workspace, extra):
-    """dp meshes, refine's guidance and stage chaining (``--validate`` and
-    the testset grid are ported: tests/test_torch_eval_cli.py)."""
+    """dp meshes are not ported; refine's guidance without the random-camera
+    SDS batch (``data.use_random_camera``) and stage chaining from a
+    checkpoint that does not exist are refused before any work (refine and
+    chaining themselves: tests/test_torch_refine.py)."""
     from animate3d_tpu_torch.cli.launch import main
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(REFUSED[tuple(extra)]):
         main(["--config", str(workspace / "config.yaml"), "--device", "cpu", *extra])
 
 

@@ -66,7 +66,7 @@ def test_two_step_freeinit_sample_matches_jax():
     prepare / denoise / re-noise pieces against the JAX sampler's jitted
     scan with the same noise, text and image conditioning."""
     n, f, hw = 4, 3, 32
-    unet, _ = build_models("tiny", n, "cpu", seed=5)
+    unet, *_ = build_models("tiny", n, "cpu", seed=5)
     with torch.no_grad():  # make the zero-init I2V out-projections live
         for name, p in unet.named_parameters():
             if "to_out_i2v" in name:

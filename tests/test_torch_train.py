@@ -255,8 +255,8 @@ def test_checkpointed_step_launch_structure(monkeypatch):
         monkeypatch.setattr(mod, name, counted(counter, getattr(mod, name)))
     monkeypatch.setattr(G, "geglu_plan", lambda *a: True)
 
-    unet, _ = build_models("tiny", N_VIEWS, "cpu", seed=0, train=True,
-                           gradient_checkpointing=True)
+    unet, *_ = build_models("tiny", N_VIEWS, "cpu", seed=0, train=True,
+                            gradient_checkpointing=True)
     masters = TT.cast_frozen_bf16(unet, torch.float32)
     cfg = TT.MVVDMTrainConfig(num_views=N_VIEWS)
     rng = np.random.default_rng(2)
