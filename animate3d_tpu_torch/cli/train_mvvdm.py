@@ -3,19 +3,26 @@
     python -m animate3d_tpu_torch.cli.train_mvvdm --config <yaml> [key.path=value ...]
 
 Reads the keys of ``configs/training/train.yaml`` (and of the JAX CLI,
-``animate3d_tpu/cli/train_mvvdm.py``): builds the MV motion UNet + VAE with
-random weights from ``global_seed`` (no weight files in the repository yet),
-keeps f32 masters of the trainable parameters with the UNet in bf16 on
-CUDA, and runs the loop: VAE posterior sample x 0.18215, the train step,
+``animate3d_tpu/cli/train_mvvdm.py``): builds the MV motion UNet + VAE from
+``global_seed``, loads ``flax_params_dir`` (an artifact root in the layout
+of ``convert/weights.py::discover_artifacts``: UNet, VAE, the CLIP towers
+and tokenizer where it holds them) through ``factory.init_and_load``, then
+``pretrained_model_path``'s diffusers ``unet/`` and ``vae/`` model files
+over it, and runs the loop: VAE posterior sample x 0.18215, the train step,
 metrics at the log cadence, checkpoints and the motion-module export every
 ``checkpointing_steps`` and at the end, resume from the latest checkpoint,
 and validation sampling every ``validation_steps``. The first batch is
-dumped as ``sanity_check.gif``. Text and IP-Adapter image embeddings are
-zeros: the trainer loads no weights yet, the CLIP towers' included. The
-frozen weights are always stored in the compute dtype (the JAX CLI's
-``cast_frozen_bf16: true``, its default). Keys
-that ask for what is not ported yet (weights on disk, wandb, the ZeRO
-optimizer) raise. Runs on CUDA; ``--device cpu`` exists for the tests.
+dumped as ``sanity_check.gif``.
+
+Conditioning as in the JAX trainer: each caption through the text tower
+(cached per caption, repeated across its views), the CFG null context the
+encoded ``""``, and frame 0 of each view through the IP-Adapter's vision
+tower for the image embeds; without a tower (or a tokenizer) the
+conditioning is zeros, with a warning (smoke mode). The UNet computes in
+bf16 on CUDA with f32 trainable parameters; the frozen ones are stored in
+bf16 (``cast_frozen_bf16: true``, the default) or kept in f32 (``false``).
+``use_wandb`` and ``zero_sharded_optimizer`` raise: not ported. Runs on
+CUDA; ``--device cpu`` exists for the tests.
 """
 
 from __future__ import annotations
@@ -31,22 +38,35 @@ import torch
 def _check_supported(cfg: dict) -> None:
     """Raise on config keys whose feature the port does not have yet,
     rather than train without it."""
-    for key in ("flax_params_dir", "pretrained_model_path"):
-        if cfg.get(key) and os.path.isdir(cfg[key]):
-            raise NotImplementedError(f"{key}={cfg[key]!r}: loading weights from disk is "
-                                      "not ported yet (the port trains from a seeded init)")
     for key in ("use_wandb", "zero_sharded_optimizer"):
         if cfg.get(key):
             raise NotImplementedError(f"{key}: not ported yet")
-    if cfg.get("cast_frozen_bf16", True) is False:
-        raise NotImplementedError("cast_frozen_bf16: false (frozen weights kept in f32) "
-                                  "is not ported; the port stores them in the compute dtype")
+
+
+def load_pretrained_model_path(base: str, unet, vae) -> dict:
+    """``base``'s diffusers ``unet/`` and ``vae/`` model files (the
+    ``.safetensors``, else the ``.bin``) over the modules, by the released
+    key names, as the JAX trainer loads them over its bundle. Returns
+    {"unet" / "vae": (missing, unexpected) key lists} for the files found."""
+    from animate3d_tpu_torch.convert import weights as W
+
+    audit = {}
+    for sub, module, key in (("unet", unet, W.unet_key), ("vae", vae, W.vae_key)):
+        path = W.find_model_file(os.path.join(base, sub), W.MODEL_FILES[:2])
+        if path:
+            sd = {key(k): v for k, v in W.load_torch_state_dict(path).items()}
+            audit[sub] = W._assign(module, sd)
+            print(f"[load] {path}: missing={len(audit[sub][0])} "
+                  f"unexpected={len(audit[sub][1])}")
+    return audit
 
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"unet", "optimizer", "metrics" (one dict per
     step run), "step_seconds" (wall per step, ended by a device
-    synchronise on CUDA), "start_step"}."""
+    synchronise on CUDA), "start_step", "loaded" (the families read from
+    files), "conditioning" (the first batch's text_ctx, null_text_ctx and
+    image_embeds)}."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -64,8 +84,9 @@ def main(argv=None) -> dict:
     from animate3d_tpu_torch.core.config import deep_merge, parse_cli_overrides
     from animate3d_tpu_torch.core.device import resolve_device
     from animate3d_tpu_torch.data.video_dataset import MVideoConfig, MVideoDataset, Prefetcher
+    from animate3d_tpu_torch.models.clip import encode_ip_adapter_images
     from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
-    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.models.factory import build_models, has_tokenizer, init_and_load
     from animate3d_tpu_torch.pipelines.train_mvvdm import (
         MVVDMTrainConfig,
         TrainBatch,
@@ -91,12 +112,22 @@ def main(argv=None) -> dict:
     seed = cfg.get("global_seed", 42)
 
     ckpt_flag = bool(cfg.get("gradient_checkpointing", False))
-    unet, vae, _, _ = build_models(cfg.get("model_size", "full"), n_views, dev, seed=seed,
-                                   train=True, gradient_checkpointing=ckpt_flag, clip=False)
-    print("WARNING: no UNet weights given — random init (smoke mode)")
+    root = cfg.get("flax_params_dir")
+    towers = bool(root) and os.path.isdir(root)
+    unet, vae, text_model, vision_model = build_models(
+        cfg.get("model_size", "full"), n_views, dev, seed=seed, train=True,
+        gradient_checkpointing=ckpt_flag, clip=towers)
+    unet, vae, text_model, vision_model, loaded = init_and_load(
+        unet, vae, text_model, vision_model, root, None)
+    base = cfg.get("pretrained_model_path")
+    if base and os.path.isdir(base):
+        loaded |= set(load_pretrained_model_path(base, unet, vae))
     if ckpt_flag:
         print("[train] gradient checkpointing (block recompute) enabled")
-    masters = cast_frozen_bf16(unet, torch.bfloat16 if dev.type == "cuda" else torch.float32)
+    # released files are f32: the frozen weights are rounded to the compute
+    # dtype once, here, unless cast_frozen_bf16 is false
+    masters = cast_frozen_bf16(unet, torch.bfloat16 if dev.type == "cuda" else torch.float32,
+                               cast_frozen=bool(cfg.get("cast_frozen_bf16", True)))
     ucfg = unet.config
     lat = sample_size // (2 ** (len(vae.config.block_out_channels) - 1))
 
@@ -139,9 +170,6 @@ def main(argv=None) -> dict:
         with torch.no_grad():
             for name, m in masters.items():
                 m.copy_(state["masters"][name])
-            params = dict(unet.named_parameters())
-            for name, m in masters.items():
-                params[name].copy_(m)
         opt.load_state_dict(state["optimizer"])
         gen.set_state(state["generator"])
         start_step = int(state["step"])
@@ -152,9 +180,48 @@ def main(argv=None) -> dict:
     prefetch = Prefetcher(batches, depth=depth) if depth > 0 else None
     it = prefetch or batches
 
-    print("[text] WARNING: no text encoder — zero text conditioning (smoke mode)")
-    print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
     ctx_dim, img_dim = ucfg.cross_attention_dim, ucfg.image_embed_dim
+    # caption -> CLIP text embeddings, cached per caption; the null context
+    # is the encoded empty caption
+    encode_captions = null_ctx_row = None
+    if text_model is not None and has_tokenizer(root):
+        from animate3d_tpu_torch.convert.weights import tokenizer_root
+        from animate3d_tpu_torch.utils.tokenizer import ClipTokenizer, find_tokenizer_files
+
+        tokenizer = ClipTokenizer(*find_tokenizer_files(tokenizer_root(root)), max_length=77)
+        cap_cache = {}
+
+        @torch.no_grad()
+        def encode_captions(texts) -> torch.Tensor:
+            missing = sorted({t for t in texts if t not in cap_cache})
+            if missing:
+                ids = torch.as_tensor(tokenizer(missing), dtype=torch.long, device=dev)
+                cap_cache.update(zip(missing, text_model(ids).float()))
+            return torch.stack([cap_cache[t] for t in texts])
+
+        null_ctx_row = encode_captions([""])[0]
+    else:
+        print("[text] WARNING: no text encoder/tokenizer — zero text conditioning (smoke mode)")
+
+    @torch.no_grad()
+    def encode_frame0(frame0: torch.Tensor) -> torch.Tensor:
+        """(M, H, W, 3) frames in [-1, 1] -> (M, D_img) IP-Adapter embeds."""
+        if vision_model is None:
+            return torch.zeros((frame0.shape[0], img_dim), device=dev)
+        return encode_ip_adapter_images(vision_model, (frame0 + 1.0) / 2.0).float()
+
+    if vision_model is None:
+        print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
+
+    def text_pair(captions, n: int):
+        """(text_ctx, null_ctx) for one caption per video, each repeated
+        over its ``n`` views (view-major)."""
+        if encode_captions is None:
+            zeros = torch.zeros((len(captions) * n, 77, ctx_dim), device=dev)
+            return zeros, zeros
+        ctx = encode_captions(list(captions)).repeat_interleave(n, dim=0)
+        return ctx, null_ctx_row.expand(ctx.shape).clone()
+
     logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
     ckpt_every = cfg.get("checkpointing_steps", 1000)
     validation_steps = cfg.get("validation_steps", 0)
@@ -172,8 +239,9 @@ def main(argv=None) -> dict:
         return torch.cat(outs)
 
     def run_validation(step: int, raw) -> None:
-        """Sample on the first video's conditioning with the sampling
-        pipeline and write a 4-view GIF."""
+        """Sample on the first video's conditioning (its frame-0 renders,
+        caption and image embeds) with the sampling pipeline and write a
+        4-view GIF."""
         from animate3d_tpu_torch.pipelines.mv_sampler import (
             MVSampler,
             MVSamplerConfig,
@@ -185,27 +253,28 @@ def main(argv=None) -> dict:
         n, f = raw["pixel_values"].shape[1:3]
         frame0 = torch.as_tensor(raw["pixel_values"][0, :, 0], device=dev)
         ffl = encode_conditioning_images(vae, frame0)
-        text = torch.zeros((n, 77, ctx_dim), device=dev)
+        text_cond, text_uncond = text_pair(raw["text"][:1], n)
         scfg = MVSamplerConfig(
             num_inference_steps=cfg.get("validation_num_steps", 25), num_views=n,
             num_frames=f, height=sample_size, width=sample_size,
             vae_scale_factor=2 ** (len(vae.config.block_out_channels) - 1),
             freeinit_enabled=False, i2v_cond_time_zero=tcfg.i2v_cond_time_zero)
         latents = MVSampler(unet, scfg, scheduler).sample(
-            ffl, text, text, torch.zeros((n, img_dim), device=dev), generator=gen)
+            ffl, text_cond, text_uncond, encode_frame0(frame0), generator=gen)
         out = os.path.join(out_dir, "samples", f"sample-{step}.gif")
         export_to_gif_mv(decode_video(vae, latents).cpu().numpy(), out)
         print(f"[val] wrote {out}")
 
     def save(step: int) -> None:
         frozen = {k: v for k, v in unet.state_dict().items() if k not in masters}
+        trained = {k: v.detach() for k, v in masters.items()}
         save_checkpoint(ckpt_dir, step, {
-            "step": step, "masters": masters, "frozen": frozen,
+            "step": step, "masters": trained, "frozen": frozen,
             "optimizer": opt.state_dict(), "generator": gen.get_state()})
         save_checkpoint(os.path.join(out_dir, "motion_modules"), step,
-                        {"params": extract_motion_modules(masters)}, keep=2)
+                        {"params": extract_motion_modules(trained)}, keep=2)
 
-    metrics_all, step_seconds = [], []
+    metrics_all, step_seconds, conditioning = [], [], None
     try:
         for step in range(start_step, max_steps):
             t0 = time.perf_counter()
@@ -214,14 +283,19 @@ def main(argv=None) -> dict:
             if step == start_step:
                 vids = (raw["pixel_values"].reshape(b * n, f, sample_size, sample_size, 3) + 1) / 2
                 save_videos_grid(vids, os.path.join(out_dir, "sanity_check.gif"), n_rows=n)
-            imgs = torch.as_tensor(
-                raw["pixel_values"].reshape(b * n * f, sample_size, sample_size, 3), device=dev)
+            pixels = torch.as_tensor(raw["pixel_values"], device=dev)
+            imgs = pixels.reshape(b * n * f, sample_size, sample_size, 3)
             latents = (vae_sample(imgs) * 0.18215).reshape(b * n, f, lat, lat, 4)
-            text_ctx = torch.zeros((b * n, 77, ctx_dim), device=dev)
+            text_ctx, null_ctx = text_pair(raw["text"], n)
+            image_embeds = encode_frame0(pixels[:, :, 0].reshape(b * n, sample_size,
+                                                                 sample_size, 3))
             batch = TrainBatch(
-                latents=latents, text_ctx=text_ctx, null_text_ctx=torch.zeros_like(text_ctx),
+                latents=latents, text_ctx=text_ctx, null_text_ctx=null_ctx,
                 camera=torch.as_tensor(raw["cameras"].reshape(b * n, 16), device=dev),
-                image_embeds=torch.zeros((b * n, img_dim), device=dev))
+                image_embeds=image_embeds)
+            if conditioning is None:
+                conditioning = {"text_ctx": text_ctx, "null_text_ctx": null_ctx,
+                                "image_embeds": image_embeds}
             metrics = train_step(unet, opt, batch, tcfg, scheduler, gen)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -241,7 +315,8 @@ def main(argv=None) -> dict:
         if prefetch is not None:
             prefetch.close()
     return {"unet": unet, "optimizer": opt, "metrics": metrics_all,
-            "step_seconds": step_seconds, "start_step": start_step}
+            "step_seconds": step_seconds, "start_step": start_step, "loaded": loaded,
+            "conditioning": conditioning}
 
 
 if __name__ == "__main__":

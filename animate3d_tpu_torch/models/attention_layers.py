@@ -4,7 +4,8 @@ Port of ``animate3d_tpu/models/attention_layers.py``: the same token layouts
 (inputs ``(B·N·F, L, C)`` for the spatial attentions, ``(B·N·h·w, F, C)``
 for the motion attentions), the same bias pattern (q/k/v bias-free,
 out-projections biased) and diffusers parameter names. Projections are
-plain ``nn.Linear``; the attention itself goes through
+``layers.Linear`` (weights cast to the activations' dtype at use); the
+attention itself goes through
 :func:`~animate3d_tpu_torch.ops.attention.multi_head_attention`, which takes
 kernel A or B on CUDA where the TPU took its Pallas kernels. The TPU's
 128-lane head padding of the projection weights is not carried over: the
@@ -24,12 +25,13 @@ from animate3d_tpu_torch.models.embeddings import (
     sine_positional_encoding_2d,
     sinusoidal_positions,
 )
+from animate3d_tpu_torch.models.layers import Linear
 from animate3d_tpu_torch.ops.attention import multi_head_attention
 from animate3d_tpu_torch.ops.geglu import geglu_ff
 
 
-def _proj(in_dim: int, out_dim: int) -> nn.Linear:
-    return nn.Linear(in_dim, out_dim, bias=False)
+def _proj(in_dim: int, out_dim: int) -> Linear:
+    return Linear(in_dim, out_dim, bias=False)
 
 
 class CrossViewSelfAttention(nn.Module):
@@ -43,10 +45,10 @@ class CrossViewSelfAttention(nn.Module):
         c = channels
         self.num_heads, self.num_views, self.image_attn = num_heads, num_views, image_attn
         self.to_q, self.to_k, self.to_v = _proj(c, c), _proj(c, c), _proj(c, c)
-        self.to_out = nn.ModuleList([nn.Linear(c, c)])
+        self.to_out = nn.ModuleList([Linear(c, c)])
         if image_attn:
             self.to_q_i2v = _proj(c, c)
-            self.to_out_i2v = nn.Linear(c, c)
+            self.to_out_i2v = Linear(c, c)
 
     def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
         bnf, l, c = x.shape
@@ -82,7 +84,7 @@ class TextCrossAttention(nn.Module):
         self.to_k, self.to_v = _proj(context_dim, c), _proj(context_dim, c)
         if ip_enabled:
             self.to_k_ip, self.to_v_ip = _proj(context_dim, c), _proj(context_dim, c)
-        self.to_out = nn.ModuleList([nn.Linear(c, c)])
+        self.to_out = nn.ModuleList([Linear(c, c)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -146,7 +148,7 @@ class SpatioTemporalAttention(nn.Module):
         self.camera_encoding = camera_encoding if spatial_attn else None
         self.max_seq_length = max_seq_length
         self.to_q, self.to_k, self.to_v = _proj(c, c), _proj(c, c), _proj(c, c)
-        self.to_out = nn.ModuleList([nn.Linear(c, c)])
+        self.to_out = nn.ModuleList([Linear(c, c)])
         if spatial_attn:
             if self.spatial_encoding == "learnable":
                 if spatial_size is None:
@@ -157,10 +159,10 @@ class SpatioTemporalAttention(nn.Module):
             if self.camera_encoding == "learnable":
                 self.camera_embed = nn.Parameter(torch.zeros(num_views, c))
             self.to_q_sp, self.to_k_sp, self.to_v_sp = _proj(c, c), _proj(c, c), _proj(c, c)
-            self.to_out_sp = nn.Linear(c, c)
+            self.to_out_sp = Linear(c, c)
         if image_attn:
             self.to_q_i2v, self.to_k_i2v, self.to_v_i2v = _proj(c, c), _proj(c, c), _proj(c, c)
-            self.to_out_i2v = nn.Linear(c, c)
+            self.to_out_i2v = Linear(c, c)
         if use_alpha_blender and spatial_attn and image_attn:
             self.alpha_blender = SoftmaxAlphaBlender()
         elif use_alpha_blender and (spatial_attn or image_attn):
@@ -239,7 +241,7 @@ class TemporalSelfAttention(nn.Module):
         c = channels
         self.num_heads = num_heads
         self.to_q, self.to_k, self.to_v = _proj(c, c), _proj(c, c), _proj(c, c)
-        self.to_out = nn.ModuleList([nn.Linear(c, c)])
+        self.to_out = nn.ModuleList([Linear(c, c)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = multi_head_attention(self.to_q(x), self.to_k(x), self.to_v(x),
@@ -250,7 +252,7 @@ class TemporalSelfAttention(nn.Module):
 class _GEGLUProj(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
 
 class FeedForwardGEGLU(nn.Module):
@@ -262,8 +264,9 @@ class FeedForwardGEGLU(nn.Module):
         super().__init__()
         inner = channels * mult
         self.net = nn.ModuleList([_GEGLUProj(channels, inner), nn.Identity(),
-                                  nn.Linear(inner, channels)])
+                                  Linear(inner, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
-        return geglu_ff(x, proj.weight, proj.bias, out.weight, out.bias)
+        return geglu_ff(x, *(t.to(x.dtype) for t in (proj.weight, proj.bias, out.weight,
+                                                      out.bias)))

@@ -8,6 +8,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from animate3d_tpu_torch.models.layers import LayerNorm, Linear
+
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            flip_sin_to_cos: bool = True,
@@ -31,8 +33,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, dim_out: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim_out)
-        self.linear_2 = nn.Linear(dim_out, dim_out)
+        self.linear_1 = Linear(in_dim, dim_out)
+        self.linear_2 = Linear(dim_out, dim_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(nn.functional.silu(self.linear_1(x)))
@@ -121,8 +123,8 @@ class ImageProjection(nn.Module):
         super().__init__()
         self.num_tokens = num_tokens
         self.cross_attention_dim = cross_attention_dim
-        self.image_embeds = nn.Linear(image_embed_dim, num_tokens * cross_attention_dim)
-        self.norm = nn.LayerNorm(cross_attention_dim, eps=1e-5)
+        self.image_embeds = Linear(image_embed_dim, num_tokens * cross_attention_dim)
+        self.norm = LayerNorm(cross_attention_dim, eps=1e-5)
 
     def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
         x = self.image_embeds(image_embeds)

@@ -8,7 +8,7 @@ them out, per attention behaviour (see attention_layers.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,6 +21,7 @@ from animate3d_tpu_torch.models.attention_layers import (
     TextCrossAttention,
 )
 from animate3d_tpu_torch.models.embeddings import add_temporal_positional_embedding
+from animate3d_tpu_torch.models.layers import Conv2d, GroupNorm, LayerNorm, Linear
 
 
 @dataclass(frozen=True)
@@ -38,13 +39,13 @@ class MotionAttnConfig:
 class ResnetBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(32, in_channels, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
-        self.norm2 = nn.GroupNorm(32, out_channels, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.norm1 = GroupNorm(32, in_channels, eps=1e-5)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = Linear(temb_channels, out_channels)
+        self.norm2 = GroupNorm(32, out_channels, eps=1e-5)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         silu = nn.functional.silu
@@ -58,7 +59,7 @@ class ResnetBlock2D(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -67,7 +68,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(nn.functional.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -80,13 +81,13 @@ class SpatialTransformerBlock(nn.Module):
                  context_dim: int = 768, mv_image_attn: bool = True,
                  ip_enabled: bool = True, ip_scale: float = 1.0):
         super().__init__()
-        self.norm1 = nn.LayerNorm(channels, eps=1e-5)
+        self.norm1 = LayerNorm(channels, eps=1e-5)
         self.attn1 = CrossViewSelfAttention(channels, num_heads, num_views,
                                             image_attn=mv_image_attn)
-        self.norm2 = nn.LayerNorm(channels, eps=1e-5)
+        self.norm2 = LayerNorm(channels, eps=1e-5)
         self.attn2 = TextCrossAttention(channels, num_heads, context_dim,
                                         ip_enabled=ip_enabled, ip_scale=ip_scale)
-        self.norm3 = nn.LayerNorm(channels, eps=1e-5)
+        self.norm3 = LayerNorm(channels, eps=1e-5)
         self.ff = FeedForwardGEGLU(channels)
 
     def forward(self, x, context, ip_context, num_frames: int):
@@ -102,12 +103,12 @@ class SpatialTransformer(nn.Module):
                  context_dim: int = 768, mv_image_attn: bool = True,
                  ip_enabled: bool = True, ip_scale: float = 1.0):
         super().__init__()
-        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.norm = GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([SpatialTransformerBlock(
             channels, num_heads, num_views, context_dim, mv_image_attn,
             ip_enabled, ip_scale)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x, context, ip_context, num_frames: int):
         b, c, hh, ww = x.shape
@@ -122,7 +123,8 @@ class MotionTransformerBlock(nn.Module):
     """Temporal BasicTransformerBlock with two self-attentions."""
 
     def __init__(self, channels: int, num_heads: int, num_views: int,
-                 attn_cfg: MotionAttnConfig, max_seq_length: int = 32):
+                 attn_cfg: MotionAttnConfig, max_seq_length: int = 32,
+                 spatial_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         cfg = attn_cfg
         self.max_seq_length = max_seq_length
@@ -140,14 +142,14 @@ class MotionTransformerBlock(nn.Module):
                     use_alpha_blender=cfg.use_alpha_blender,
                     spatial_encoding=cfg.spatial_encoding if cfg.spatial_attn else None,
                     camera_encoding=cfg.camera_encoding if cfg.spatial_attn else None,
-                    max_seq_length=max_seq_length)
+                    max_seq_length=max_seq_length, spatial_size=spatial_size)
             return TemporalSelfAttention(channels, num_heads)
 
-        self.norm1 = nn.LayerNorm(channels, eps=1e-5)
+        self.norm1 = LayerNorm(channels, eps=1e-5)
         self.attn1 = attn()
-        self.norm2 = nn.LayerNorm(channels, eps=1e-5)
+        self.norm2 = LayerNorm(channels, eps=1e-5)
         self.attn2 = attn()
-        self.norm3 = nn.LayerNorm(channels, eps=1e-5)
+        self.norm3 = LayerNorm(channels, eps=1e-5)
         self.ff = FeedForwardGEGLU(channels)
 
     def _pe(self, h: torch.Tensor) -> torch.Tensor:
@@ -163,16 +165,19 @@ class MotionTransformerBlock(nn.Module):
 
 class MotionModule(nn.Module):
     """TransformerTemporalModel over the frame axis: input (B·N·F, C, H, W),
-    group-norm statistics over (F, H, W) per sample, tokens (B·N·H·W, F, C)."""
+    group-norm statistics over (F, H, W) per sample, tokens (B·N·H·W, F, C).
+    ``spatial_size`` is the (H, W) the learnable spatial encoding's tables
+    are sized for."""
 
     def __init__(self, channels: int, num_heads: int, num_views: int,
-                 attn_cfg: MotionAttnConfig, max_seq_length: int = 32):
+                 attn_cfg: MotionAttnConfig, max_seq_length: int = 32,
+                 spatial_size: Optional[Tuple[int, int]] = None):
         super().__init__()
-        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
-        self.proj_in = nn.Linear(channels, channels)
+        self.norm = GroupNorm(32, channels, eps=1e-6)
+        self.proj_in = Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([MotionTransformerBlock(
-            channels, num_heads, num_views, attn_cfg, max_seq_length)])
-        self.proj_out = nn.Linear(channels, channels)
+            channels, num_heads, num_views, attn_cfg, max_seq_length, spatial_size)])
+        self.proj_out = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
         bnf, c, hh, ww = x.shape

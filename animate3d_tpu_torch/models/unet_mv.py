@@ -22,6 +22,7 @@ from animate3d_tpu_torch.models.embeddings import (
     compose_frame_time_embeddings,
     get_timestep_embedding,
 )
+from animate3d_tpu_torch.models.layers import Conv2d, GroupNorm
 from animate3d_tpu_torch.models.unet_blocks import (
     Downsample2D,
     MotionAttnConfig,
@@ -55,6 +56,10 @@ class MVUNetConfig:
     # the backward pass instead of storing its activations (the reference's
     # unet.enable_gradient_checkpointing(); the JAX package's nn.remat)
     gradient_checkpointing: bool = False
+    # (h, w) of the latents the learnable spatial encoding's tables are
+    # sized for (the JAX module sizes them from the input of its ``init``);
+    # each level's tables take that level's size
+    latent_size: Optional[Tuple[int, int]] = None
 
     @staticmethod
     def tiny(**kw) -> "MVUNetConfig":
@@ -91,13 +96,15 @@ class MVMotionUNet(nn.Module):
     def __init__(self, config: MVUNetConfig = MVUNetConfig()):
         super().__init__()
         cfg = self.config = config
-        if cfg.motion_attn.spatial_encoding == "learnable":
-            raise NotImplementedError(
-                "learnable spatial encoding needs per-level feature sizes; "
-                "not ported (the inference config uses 'sinusoid')")
+        # the dtype the UNet computes in; None: its parameters' (the trainer
+        # sets it where frozen or trainable weights are stored in f32)
+        self.compute_dtype: Optional[torch.dtype] = None
+        learnable = cfg.motion_attn.spatial_encoding == "learnable"
+        if learnable and cfg.latent_size is None:
+            raise ValueError("the learnable spatial encoding needs MVUNetConfig.latent_size")
         boc = cfg.block_out_channels
         temb = boc[0] * 4
-        self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], temb)
         if cfg.camera_embedding_dim is not None:
             self.camera_embedding = TimestepEmbedding(cfg.camera_embedding_dim, temb)
@@ -110,9 +117,12 @@ class MVMotionUNet(nn.Module):
                                       cfg.cross_attention_dim, cfg.mv_image_attn,
                                       cfg.ip_enabled, cfg.ip_scale)
 
-        def mm(ch):
+        def mm(ch, level):
+            size = None
+            if learnable:  # a stride-2 conv per level down: ceil(h / 2)
+                size = tuple(-(-s // 2 ** level) for s in cfg.latent_size)
             return MotionModule(ch, cfg.motion_num_heads, cfg.num_views,
-                                cfg.motion_attn, cfg.motion_max_seq_length)
+                                cfg.motion_attn, cfg.motion_max_seq_length, size)
 
         n = len(boc)
         skip_ch = [boc[0]]
@@ -125,7 +135,7 @@ class MVMotionUNet(nn.Module):
                 ch = boc[i]
                 if i < n - 1:
                     attns.append(st(ch))
-                mms.append(mm(ch))
+                mms.append(mm(ch, i))
                 skip_ch.append(ch)
             down = Downsample2D(ch) if i < n - 1 else None
             if down is not None:
@@ -133,7 +143,7 @@ class MVMotionUNet(nn.Module):
             self.down_blocks.append(_Block(resnets, attns, mms, "downsamplers", down))
 
         self.mid_block = _Block([ResnetBlock2D(ch, ch, temb), ResnetBlock2D(ch, ch, temb)],
-                                [st(ch)], [mm(ch)])
+                                [st(ch)], [mm(ch, n - 1)])
 
         rev = list(reversed(boc))
         self.up_blocks = nn.ModuleList()
@@ -144,12 +154,12 @@ class MVMotionUNet(nn.Module):
                 ch = rev[i]
                 if i > 0:
                     attns.append(st(ch))
-                mms.append(mm(ch))
+                mms.append(mm(ch, n - 1 - i))
             up = Upsample2D(ch) if i < n - 1 else None
             self.up_blocks.append(_Block(resnets, attns, mms, "upsamplers", up))
 
-        self.conv_norm_out = nn.GroupNorm(32, boc[0], eps=1e-5)
-        self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(32, boc[0], eps=1e-5)
+        self.conv_out = Conv2d(boc[0], cfg.out_channels, 3, padding=1)
 
     def _block(self, fn, *args):
         """One block call, checkpointed when gradient checkpointing is on
@@ -165,12 +175,12 @@ class MVMotionUNet(nn.Module):
                 i2v_cond_time_zero: bool = False) -> torch.Tensor:
         """latents (B·N, F, h, w, C), timesteps () or (B·N,), text context
         (B·N, 77, D), camera (B·N, 16), image embeds (B·N, D_img) → noise
-        prediction (B·N, F, h, w, C_out) in the UNet's dtype."""
+        prediction (B·N, F, h, w, C_out) in the UNet's compute dtype."""
         cfg = self.config
         bn, f, hh, ww, c_in = latents.shape
         if bn % cfg.num_views:
             raise ValueError(f"batch {bn} not divisible by num_views {cfg.num_views}")
-        dtype, dev = self.conv_in.weight.dtype, self.conv_in.weight.device
+        dtype, dev = self.compute_dtype or self.conv_in.weight.dtype, self.conv_in.weight.device
         boc = cfg.block_out_channels
 
         ts = torch.as_tensor(timesteps, device=dev).reshape(-1).expand(bn)

@@ -9,11 +9,13 @@ Port of ``animate3d_tpu/pipelines/train_mvvdm.py`` on one device:
   * per-video CFG dropout of the text context to the null context;
   * AdamW after global-norm clipping, with the optax schedules.
 
-Precision mirrors the JAX trainer: the UNet module runs in the model dtype
-(bf16 on the card) and holds every parameter in it; the optimizer
-(:class:`MasterAdamW`) owns f32 master copies of the trainable parameters
-only. After ``backward`` their bf16 gradients are upcast, clipped and
-stepped on the masters, and the masters are copied back into the module.
+Precision mirrors the JAX trainer: the UNet computes in the model dtype
+(bf16 on the card, ``unet.compute_dtype``) and stores the trainable
+parameters in f32, which are the optimizer's masters (:class:`MasterAdamW`);
+the frozen ones are stored in the compute dtype (``cast_frozen_bf16: true``,
+the default) or kept in f32 (``false``). Each layer casts its weights to the
+compute dtype at use and the norms apply theirs in f32, flax's rule
+(``models/layers.py``), so the kernels see bf16 activations either way.
 Frozen parameters get no gradient, no state and no update.
 
 The random draws come from an explicit ``torch.Generator``; :func:`loss_fn`
@@ -109,15 +111,21 @@ def trainable_mask(module: torch.nn.Module) -> Dict[str, bool]:
     return {name: is_trainable(name) for name, _ in module.named_parameters()}
 
 
-def cast_frozen_bf16(unet: torch.nn.Module, dtype: torch.dtype = torch.bfloat16
-                     ) -> Dict[str, torch.Tensor]:
-    """Keep f32 master copies of the trainable parameters, then cast the
-    whole module to ``dtype``: frozen weights are stored in it, as the JAX
-    trainer stores them, and trainable ones are the compute copies the
-    masters are written back to after every step. Returns the masters."""
-    masters = {name: p.detach().float().clone() for name, p in unet.named_parameters()
-               if is_trainable(name)}
-    unet.to(dtype)
+def cast_frozen_bf16(unet: torch.nn.Module, dtype: torch.dtype = torch.bfloat16,
+                     cast_frozen: bool = True) -> Dict[str, torch.Tensor]:
+    """Set the UNet to compute in ``dtype`` with its trainable parameters
+    stored in f32 and the frozen ones in ``dtype`` (``cast_frozen``, the
+    JAX trainer's ``cast_frozen_bf16: true``) or in f32 (``false``). Returns
+    the masters: {name: trainable parameter}, the module's own f32 tensors."""
+    masters = {}
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if is_trainable(name):
+                p.data = p.data.float()
+                masters[name] = p
+            else:
+                p.data = p.data.to(dtype if cast_frozen else torch.float32)
+    unet.compute_dtype = dtype
     return masters
 
 
@@ -207,20 +215,11 @@ def loss_fn(unet: torch.nn.Module, batch: TrainBatch, t: torch.Tensor, noise: to
 
 
 def apply_gradients(unet: torch.nn.Module, opt: MasterAdamW) -> torch.Tensor:
-    """Step the masters on the module's trainable gradients, write them back
-    into the module (in its dtype) and clear the gradients. Returns the
-    global gradient norm before clipping."""
-    params = dict(unet.named_parameters())
-    grads = []
-    for name, m in opt.masters.items():
-        g = params[name].grad
-        grads.append(torch.zeros_like(m) if g is None else g)
-    norm = opt.step(grads)
-    with torch.no_grad():
-        for name, m in opt.masters.items():
-            params[name].copy_(m)
-            params[name].grad = None
-    return norm
+    """Step the masters (the module's trainable parameters) on their
+    gradients and clear them. Returns the global gradient norm before
+    clipping."""
+    grads = [torch.zeros_like(m) if m.grad is None else m.grad for m in opt.masters.values()]
+    return opt.step(grads)
 
 
 def train_step(unet: torch.nn.Module, opt: MasterAdamW, batch: TrainBatch,

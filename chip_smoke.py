@@ -73,7 +73,25 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    the VAE and CLIP; one refine loss + backward through the kernels against
    the same step on the plain versions (same draws); then phase 3's
    sampling CLI with the root, the prompt and the conditioning renders
-   through the towers.
+   through the towers;
+11. train with weights: the full-width UNet and VAE as diffusers files
+   (``pretrained_model_path``, f32) in the artifact root, then the trainer
+   CLI on configs/training/train.yaml as it is (paths, 3 steps and the
+   phase-5 workspace overridden; two captions) with ``cast_frozen_bf16``
+   true and false, launch counts exactly PER_TRAIN_STEP a step, the frozen
+   weights equal to the files, one loss + backward at the loaded weights
+   with the run's caption and image conditioning through the kernels
+   against the plain versions; then ``cli/validate_weights.py --smoke`` on
+   the root;
+12. mesh: the mesh-animation flow on a seeded 20,000-vertex textured OBJ —
+   ``mesh2gaussian``, the static four-view render
+   (visualize_four_view_static.yaml), a motion video rendered by the port
+   and written as a 4-view GIF, ``split_gif``, ``tracking`` (propagation,
+   on the card; coverage of the rendered alpha checked), the recon CLI on
+   configs/animate3d/mesh_animation_frame_16.yaml (3 steps + test, timed
+   steps, one loss + backward through H against plain ops), ``--export``
+   and ``export_animated_mesh`` to a GLB (vertex count, 16 morph targets);
+   kernel H at the static render's shape against its plain version.
 
 The summary lines give the step times (refine's too) with kernel B's,
 C's, E's, G's and H's share of the profiled device time, each beside the
@@ -87,6 +105,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -888,15 +907,17 @@ def train_phase(tmp: str) -> dict:
     return dict(ok=ok, per_shape=per_shape, step_s=step_s, wall_s=wall, peak_gb=peak_gb)
 
 
-def train_reference_phase() -> dict:
+def train_reference_phase(unet=None, masters=None, cond=None, tag: str = "train") -> dict:
     """One full-width loss + backward on a fixed batch with fixed draws
     through the kernels (after one warm-up step, under torch.profiler:
     device time by kernel family), against the same step with every op on
-    its plain version. Tolerances: the loss within 1e-2 relative, the concatenated
-    trainable gradient within 5e-2 relative L2: the kernels' bf16 rounding
-    (f32 sums in another order, so a flipped rounding of a bf16 P, dS or
-    GEGLU hidden here and there) carried through the 53 blocks forward and
-    back again, as for the forward reference."""
+    its plain version: on a seeded UNet with random conditioning, or on
+    ``unet`` (its trainable ``masters``) with the text, null and image
+    conditioning ``cond`` (phase 11). Tolerances: the loss within 1e-2
+    relative, the concatenated trainable gradient within 5e-2 relative L2:
+    the kernels' bf16 rounding (f32 sums in another order, so a flipped
+    rounding of a bf16 P, dS or GEGLU hidden here and there) carried through
+    the 53 blocks forward and back again, as for the forward reference."""
     from torch.profiler import ProfilerActivity, profile
 
     from animate3d_tpu_torch.models.diffusion import DDIMScheduler
@@ -910,16 +931,20 @@ def train_reference_phase() -> dict:
     )
     from animate3d_tpu_torch.utils.camera import get_camera
 
-    unet, *_ = build_models("full", 4, "cuda", seed=0, train=True, gradient_checkpointing=True,
-                            clip=False)
-    masters = cast_frozen_bf16(unet)
+    if unet is None:
+        unet, *_ = build_models("full", 4, "cuda", seed=0, train=True,
+                                gradient_checkpointing=True, clip=False)
+        masters = cast_frozen_bf16(unet)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    batch = TrainBatch(
-        latents=torch.randn((4, 16, 32, 32, 4), generator=gen, device="cuda"),
-        text_ctx=0.5 * torch.randn((4, 77, 768), generator=gen, device="cuda"),
-        null_text_ctx=torch.zeros((4, 77, 768), device="cuda"),
-        camera=torch.as_tensor(get_camera(4), device="cuda"),
-        image_embeds=torch.randn((4, 1024), generator=gen, device="cuda"))
+    latents = torch.randn((4, 16, 32, 32, 4), generator=gen, device="cuda")
+    if cond is None:
+        cond = {"text_ctx": 0.5 * torch.randn((4, 77, 768), generator=gen, device="cuda"),
+                "null_text_ctx": torch.zeros((4, 77, 768), device="cuda"),
+                "image_embeds": torch.randn((4, 1024), generator=gen, device="cuda")}
+    batch = TrainBatch(latents=latents, text_ctx=cond["text_ctx"],
+                       null_text_ctx=cond["null_text_ctx"],
+                       camera=torch.as_tensor(get_camera(4), device="cuda"),
+                       image_embeds=cond["image_embeds"])
     t = torch.tensor([501], device="cuda")
     noise = torch.randn((4, 15, 32, 32, 4), generator=gen, device="cuda")
     drop = torch.tensor([False], device="cuda")
@@ -941,7 +966,7 @@ def train_reference_phase() -> dict:
         t0 = time.perf_counter()
         loss_k, grad_k, counts_k = step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fams = _print_profile("[train-profile]", "one loss + backward at full width (64 frames, "
+    fams = _print_profile(f"[{tag}-profile]", "one loss + backward at full width (64 frames, "
                           "gradient checkpointing)", prof, wall_ms)
     with routing.plain_ops():
         loss_p, grad_p, counts_p = step()
@@ -949,7 +974,7 @@ def train_reference_phase() -> dict:
     rel = float((grad_k - grad_p).norm() / grad_p.norm())
     ok = (loss_rel <= 1e-2 and rel <= 5e-2 and bool(torch.isfinite(grad_k).all())
           and counts_k == PER_TRAIN_STEP and not any(counts_p.values()))
-    print(f"[train-reference] full-width loss + backward, kernels vs plain ops: loss "
+    print(f"[{tag}-reference] full-width loss + backward, kernels vs plain ops: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (relative {loss_rel:.3e}, tol 1e-2); trainable "
           f"gradient ({grad_k.numel()} values) relative L2 {rel:.3e} (tol 5e-2), norms "
           f"{float(grad_k.norm()):.4e} vs {float(grad_p.norm()):.4e}; launches through the "
@@ -958,7 +983,7 @@ def train_reference_phase() -> dict:
     torch.cuda.empty_cache()
     return dict(ok=ok, rel=rel, loss_rel=loss_rel, c_share=_share(fams, "kernel C geglu"),
                 b_share=_share(fams, "kernel B packed_attn"),
-                e_share=_share(fams, "kernel E packed_attn_bwd"))
+                e_share=_share(fams, "kernel E packed_attn_bwd"), busy_ms=fams.get("busy"))
 
 
 RECON_YAML = "configs/animate3d/motion_recon_frame_16.yaml"
@@ -1092,14 +1117,15 @@ def _recon_state(device):
                         device=device)
 
 
-def _raster_fields(route: str, cams: dict, n_renders: int):
+def _raster_fields(route: str, cams: dict, n_renders: int, st=None):
     """Kernel H's (``route`` "coarse") or G's ("tile") inputs as the path
-    builds them: the recon asset projected and binned by the port through
-    the first ``n_renders`` cameras of the batch ``cams``, at its size."""
+    builds them: the recon asset (or ``st``) projected and binned by the
+    port through the first ``n_renders`` cameras of the batch ``cams``, at
+    its size."""
     from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
     from animate3d_tpu_torch.ops import rasterize as R
 
-    st = _recon_state("cuda")
+    st = _recon_state("cuda") if st is None else st
     idx = torch.arange(n_renders, device="cuda")
     b, n = n_renders, st.num_points
     fn = R.coarse_fields if route == "coarse" else R.tile_fields
@@ -1464,7 +1490,7 @@ def _recon_args(tmp: str, ply: str, frames: str, res: int, eval_res: int) -> lis
 
 
 def recon_phase(tmp: str, ply: str, frames: str, res: int, eval_res: int,
-                per_step: dict, tag: str) -> dict:
+                per_step: dict, tag: str, yaml: str = RECON_YAML, extra=()) -> dict:
     """The recon CLI with the shipped config for RECON_STEPS steps plus its
     four-view test pass at ``eval_res``^2, launch counters zeroed just
     before and read just after. The only changes are dotted overrides
@@ -1476,8 +1502,8 @@ def recon_phase(tmp: str, ply: str, frames: str, res: int, eval_res: int,
     from animate3d_tpu_torch.cli.launch import main as launch_main
     from animate3d_tpu_torch.ops import _build
 
-    args = ["--config", RECON_YAML, "--train", *_recon_args(tmp, ply, frames, res, eval_res),
-            f"trainer.max_steps={RECON_STEPS}", "system.save_gaussian_trajectory=true"]
+    args = ["--config", yaml, "--train", *_recon_args(tmp, ply, frames, res, eval_res),
+            f"trainer.max_steps={RECON_STEPS}", "system.save_gaussian_trajectory=true", *extra]
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1530,14 +1556,16 @@ def _recon_batch(system, frames: str) -> dict:
 
 
 def recon_timing_phase(system, frames: str, per_step: dict, tag: str,
-                       buckets: bool = True) -> dict:
+                       buckets: bool = True, light: bool = False) -> dict:
     """Seconds per recon step (host clock, ended by a synchronize; one
     warm-up step, then the mean of 3) at the full schedule
     (global_step = 50 x 16 + 1: all 64 renders) and, with ``buckets``, at
     the frame buckets 2 / 4 / 8, with their schedule-weighted average over
     the 800-step run (steps 0-99 bucket 2, 100-199 bucket 4, 200-399
     bucket 8, 400-799 all 16 frames: the JAX package's bench.py
-    definition). Launch counters zeroed just before, read just after; then
+    definition); with ``light`` ('light' sampling), at a step of two frames
+    (8 renders), the schedule average then being 750 such steps and 50 at
+    all frames. Launch counters zeroed just before, read just after; then
     one full-schedule step under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1566,6 +1594,10 @@ def recon_timing_phase(system, frames: str, per_step: dict, tag: str,
         t2, t4, t8 = measure(ipf + 10), measure(3 * ipf + 10), measure(7 * ipf + 10)
         avg = (100 * t2 + 100 * t4 + 200 * t8 + 400 * full) / 800.0
         measured = 4
+    elif light:
+        t2 = measure(ipf + 10)
+        avg = (750 * t2 + 50 * full) / 800.0
+        measured = 2
     totals, per_shape = _build.launch_totals(), dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = measured * (iters + 1)
@@ -1574,6 +1606,8 @@ def recon_timing_phase(system, frames: str, per_step: dict, tag: str,
     print(f"[{tag}-time] seconds per recon step at {res}^2: full schedule (64 renders) "
           f"{full:.4f}" + (f"; buckets 2 / 4 / 8 (8 / 16 / 32 renders) {t2:.4f} / {t4:.4f} / "
                            f"{t8:.4f}; schedule average {avg:.4f}" if buckets else "")
+          + (f"; a light step (8 renders) {t2:.4f}; schedule average {avg:.4f}"
+             if light else "")
           + f"; peak memory {peak_gb:.2f} GiB")
     print(f"[{tag}-time] launches {totals} over {steps} steps (expected {expected})")
 
@@ -1614,10 +1648,16 @@ def recon_reference_phase(system, batch, per_step: dict, tag: str) -> dict:
                       arap_idx=torch.randint(0, n, (system.cfg.loss.arap_sample_num,),
                                              generator=gen, device="cuda"))
     params = [p for _, p in system.field.named_parameters()]
+    n_r = len(ts)
     ts, fw = torch.as_tensor(ts, device="cuda"), torch.as_tensor(fw, device="cuda")
+
+    gen_state = system.generator.get_state()
 
     def run():
         _build.reset_launches()
+        # the mesh-edge ARAP draws each node's neighbour subset from the
+        # system's generator: both runs get the same draw
+        system.generator.set_state(gen_state)
         loss, _ = system.loss(cams, ts, rgb, mask, fw, system.lambdas(system.global_step),
                               draws)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -1634,7 +1674,7 @@ def recon_reference_phase(system, batch, per_step: dict, tag: str) -> dict:
     ok = (loss_rel <= 1e-4 and rel <= 1e-3 and bool(torch.isfinite(g_k).all())
           and counts_k == per_step and not any(counts_p.values()))
     res = system.cfg.renderer.height
-    print(f"[{tag}-reference] recon loss + backward at {res}^2 (64 renders), kernels vs plain: "
+    print(f"[{tag}-reference] recon loss + backward at {res}^2 ({n_r} renders), kernels vs plain: "
           f"loss {loss_k:.7f} vs {loss_p:.7f} (relative {loss_rel:.3e}, tol 1e-4); parameter "
           f"gradient ({g_k.numel()} values) relative L2 {rel:.3e} (tol 1e-3), norms "
           f"{float(g_k.norm()):.4e} vs {float(g_p.norm()):.4e}; launches through the kernels "
@@ -1947,6 +1987,7 @@ def refine_reference_phase(system, batch, gb) -> dict:
             posterior=torch.randn((bn * f, lat, lat, 4), generator=gen, device="cuda"),
             noise=torch.randn((bn, f - 1, lat, lat, 4), generator=gen, device="cuda")))
     params = [p for _, p in system.field.named_parameters()]
+    n_r = len(ts)
     ts, fw = torch.as_tensor(ts, device="cuda"), torch.as_tensor(fw, device="cuda")
     lambdas = system.lambdas(system.global_step)
 
@@ -1996,6 +2037,318 @@ def refine_reference_phase(system, batch, gb) -> dict:
           f"{rel_l2(blank_2, blank_1):.3e}, kernels vs plain {rel_l2(blank_1, blank_p):.3e}")
     return dict(ok=ok, rel=rel, sds_rel=sds_rel, tot_rel=tot_rel, rel_sds=rel_sds,
                 rel_rec=rel_rec)
+
+
+TRAIN_YAML = "configs/training/train.yaml"
+
+
+def _write_pretrained_tree(root: str) -> str:
+    """The MVDream stack's diffusers ``unet/`` (the SD1.5 base of the MV UNet
+    at full width: every frozen tensor, without the motion modules, their
+    adapters and the IP-Adapter's keys) and ``vae/``, as f32 safetensors in
+    the artifact root's ``sd15/`` (beside phase 10's text tower): the
+    seeded init (seed 40) with every tensor nudged (x (1 + 0.01 N(0, 1)), or
+    + 0.01 N(0, 1) for 1-d ones), so that bf16 rounding moves the norms."""
+    from animate3d_tpu_torch.convert.weights import write_safetensors
+    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.pipelines.train_mvvdm import is_trainable
+
+    t0 = time.perf_counter()
+    unet, vae, *_ = build_models("full", 4, "cuda", seed=40, train=True, clip=False)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    base = os.path.join(root, "sd15")
+    for sub, module in (("unet", unet), ("vae", vae)):
+        sd = {}
+        with torch.no_grad():
+            for k, v in module.state_dict().items():
+                if sub == "unet" and (is_trainable(k) or "_ip." in k
+                                      or k.startswith("encoder_hid_proj")):
+                    continue
+                r = torch.randn(v.shape, generator=gen, device="cuda")
+                sd[k] = (v + 0.01 * r) if v.dim() < 2 else v * (1 + 0.01 * r)
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+        write_safetensors(os.path.join(base, sub, "diffusion_pytorch_model.safetensors"), sd)
+        del sd
+    del unet, vae
+    torch.cuda.empty_cache()
+    size = sum(os.path.getsize(os.path.join(base, s, "diffusion_pytorch_model.safetensors"))
+               for s in ("unet", "vae"))
+    print(f"[train-weights] pretrained_model_path {base}: unet/ and vae/ at full width, f32, "
+          f"{size / 2 ** 30:.2f} GiB written in {time.perf_counter() - t0:.1f} s")
+    return base
+
+
+def train_weights_phase(tmp: str, root: str, pretrained: str) -> dict:
+    """Phase 11: the trainer CLI on configs/training/train.yaml as it is,
+    overridden only in the paths (output, ``flax_params_dir`` = the artifact
+    root, ``pretrained_model_path``, the phase-5 workspace's manifest and
+    frames, whose two items carry distinct captions), ``max_train_steps`` 3
+    and the workspace's settings (``gradient_checkpointing``, 16 frames a
+    clip, log every step), once with ``cast_frozen_bf16`` true and once
+    false, launch counters zeroed just before and read just after each run.
+    Checks: launches exactly PER_TRAIN_STEP a step; every family loaded; the
+    frozen weights equal the files (rounded to bf16, or f32 bit for bit);
+    the masters moved from their seeded init; captions and image embeds
+    live. Then one loss + backward at the loaded weights with the run's
+    conditioning, through the kernels against the plain versions."""
+    from animate3d_tpu_torch.cli.train_mvvdm import main as train_main
+    from animate3d_tpu_torch.convert.weights import read_safetensors
+    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.ops import _build
+
+    _train_workspace(tmp)
+    manifest = os.path.join(tmp, "manifest.json")
+    with open(manifest) as fh:
+        item = json.load(fh)[0]
+    with open(manifest, "w") as fh:
+        json.dump([dict(item, caption="a toy robot walking"),
+                   dict(item, caption="a red dragon flying")], fh)
+    files = read_safetensors(os.path.join(pretrained, "unet",
+                                          "diffusion_pytorch_model.safetensors"))
+    fresh, *_ = build_models("full", 4, "cuda", seed=42, train=True, clip=False)
+    init = {k: v.detach().clone() for k, v in fresh.named_parameters() if v.requires_grad}
+    del fresh
+    out = {}
+    for cast in (True, False):
+        args = ["--config", TRAIN_YAML, f"output_dir={tmp}/out_weights_{cast}",
+                f"flax_params_dir={root}", f"pretrained_model_path={pretrained}",
+                f"train_data.manifest_path={manifest}", f"train_data.video_root={tmp}/vids",
+                "train_data.total_frames=16", f"max_train_steps={TRAIN_STEPS}",
+                "gradient_checkpointing=true", "log_every_n_steps=1",
+                f"cast_frozen_bf16={str(cast).lower()}"]
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = train_main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        totals, per_shape = _build.launch_totals(), dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = {k: n * TRAIN_STEPS for k, n in PER_TRAIN_STEP.items()}
+        unet, masters = res["unet"], res["optimizer"].masters
+        params = dict(unet.named_parameters())
+        want = torch.bfloat16 if cast else torch.float32
+        frozen_ok = sum(int(params[k].dtype == want and torch.equal(
+            params[k].detach(), v.to("cuda", want))) for k, v in files.items())
+        moved = sum(int(not torch.equal(m.detach(), init[k])) for k, m in masters.items())
+        cond = res["conditioning"]
+        losses = [m["loss"] for m in res["metrics"]]
+        live = (float((cond["text_ctx"] - cond["null_text_ctx"]).abs().max()) > 0
+                and float(cond["image_embeds"].abs().sum()) > 0)
+        step_s = float(np.mean(res["step_seconds"][1:]))
+        ok = (totals == expected and frozen_ok == len(files) and moved >= 0.9 * len(masters)
+              and {"unet", "vae", "text_encoder", "image_encoder"} <= res["loaded"]
+              and len(losses) == TRAIN_STEPS and all(np.isfinite(losses)) and live)
+        print(f"[train-weights] cast_frozen_bf16={cast}: wall {wall:.2f} s, step seconds "
+              + ", ".join(f"{t:.4f}" for t in res["step_seconds"])
+              + f"; peak memory {peak_gb:.2f} GiB; losses "
+              + ", ".join(f"{x:.5f}" for x in losses) + f"; loaded {sorted(res['loaded'])}")
+        print(f"[train-weights] cast_frozen_bf16={cast}: launches {totals} (expected "
+              f"{expected}); frozen weights equal to the files ({want}) {frozen_ok}/"
+              f"{len(files)}; masters moved {moved}/{len(masters)}; caption and image "
+              f"conditioning live {live}; card {_smi()}")
+        out[cast] = dict(ok=ok, per_shape=per_shape, step_s=step_s, peak_gb=peak_gb, wall_s=wall)
+        if not cast:
+            out["ref"] = train_reference_phase(unet, masters, cond, tag="train-weights")
+        del unet, masters, params, res, cond
+        shutil.rmtree(f"{tmp}/out_weights_{cast}")  # checkpoints of 10+ GB
+        torch.cuda.empty_cache()
+    ok = out[True]["ok"] and out[False]["ok"] and out["ref"]["ok"]
+    per_shape = collections.Counter(out[True]["per_shape"]) + \
+        collections.Counter(out[False]["per_shape"])
+    return dict(ok=ok, per_shape=dict(per_shape), bf16=out[True], f32=out[False],
+                ref=out["ref"])
+
+
+def validate_weights_phase(tmp: str, root: str) -> dict:
+    """``cli/validate_weights.py --smoke`` on the artifact root: the key
+    audit, the golden denoise step at full width and a 2-step sample
+    through the sampling CLI with every family from the root."""
+    from animate3d_tpu_torch.cli.validate_weights import main as validate_main
+
+    t0 = time.perf_counter()
+    rep = validate_main(["--all", root, "--output", os.path.join(tmp, "validate"), "--smoke"])
+    wall = time.perf_counter() - t0
+    ok = (rep["ok"] and rep["smoke"]["ok"] and set(rep["loaded_families"]) ==
+          {"unet", "vae", "text_encoder", "image_encoder"}
+          and rep["golden_denoise"]["shape"] == [8, 16, 32, 32, 4])
+    print(f"[validate-weights] --smoke on the root: wall {wall:.2f} s; audit {rep['audit']}; "
+          f"golden denoise {rep['golden_denoise']}; smoke {rep['smoke']}; ok {rep['ok']}")
+    return dict(ok=ok, wall_s=wall)
+
+
+MESH_YAML = "configs/animate3d/mesh_animation_frame_16.yaml"
+STATIC_YAML = "configs/animate3d/visualize_four_view_static.yaml"
+MESH_ROWS, MESH_COLS = 100, 200  # a UV sphere of 20,000 vertices, as phase 7's asset
+
+
+def _write_mesh_asset(d: str) -> str:
+    """A seeded textured OBJ: a UV sphere of radius 0.4 (MESH_ROWS x
+    MESH_COLS vertices, the seam duplicated) with ``vt`` coordinates, an MTL
+    and a 256² PNG texture (a seeded 16² pattern, bilinearly enlarged)."""
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    i, j = np.meshgrid(np.arange(MESH_ROWS), np.arange(MESH_COLS), indexing="ij")
+    theta, phi = np.pi * (i + 0.5) / MESH_ROWS, 2 * np.pi * j / (MESH_COLS - 1)
+    v = 0.4 * np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi),
+                        np.cos(theta)], -1).reshape(-1, 3)
+    uv = np.stack([j / (MESH_COLS - 1), 1 - (i + 0.5) / MESH_ROWS], -1).reshape(-1, 2)
+    q = (i * MESH_COLS + j)[:-1, :-1].reshape(-1)
+    faces = np.concatenate([np.stack([q, q + MESH_COLS, q + 1], 1),
+                            np.stack([q + 1, q + MESH_COLS, q + MESH_COLS + 1], 1)])
+    tex = np.random.default_rng(7).integers(0, 255, (16, 16, 3), dtype=np.uint8)
+    Image.fromarray(tex).resize((256, 256), Image.BILINEAR).save(os.path.join(d, "tex.png"))
+    with open(os.path.join(d, "asset.mtl"), "w") as f:
+        f.write("newmtl m0\nmap_Kd tex.png\n")
+    path = os.path.join(d, "asset.obj")
+    with open(path, "w") as f:
+        f.write("mtllib asset.mtl\nusemtl m0\n")
+        f.writelines(f"v {a:.6f} {b:.6f} {c:.6f}\n" for a, b, c in v)
+        f.writelines(f"vt {a:.6f} {b:.6f}\n" for a, b in uv)
+        f.writelines(f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}\n" for a, b, c in faces)
+    return path
+
+
+def mesh_phase(tmp: str) -> dict:
+    """Phase 12: the mesh-animation flow at mesh_animation_frame_16.yaml's
+    sizes (4 views x 16 frames at 256^2, a 20,000-vertex textured mesh):
+    ``mesh2gaussian``; the static four-view render with
+    visualize_four_view_static.yaml (the tracking templates); a motion
+    video rendered by the port under a seeded smooth per-vertex motion,
+    written as a 4-view GIF by ``export_to_gif_mv`` (random-weight
+    sampling gives noise, on which tracking says nothing); ``split_gif``;
+    ``tracking`` with the propagation backend on the card; the recon CLI
+    with the mesh yaml as it is (800 steps cut to 3, then timed steps,
+    'light' sampling, mesh-edge ARAP); ``--export``; ``export_animated_mesh``
+    to a GLB. Launch counters zeroed before and read after the static
+    render, the recon run and the export, each asserted exactly."""
+    from PIL import Image
+
+    from animate3d_tpu_torch.data.cameras import fixed_view_cameras, gs_cameras_from_batch
+    from animate3d_tpu_torch.gaussians.ply import load_gaussians
+    from animate3d_tpu_torch.rendering.renderer4d import Renderer4DConfig, render_batch
+    from animate3d_tpu_torch.tools import export_animated_mesh, mesh2gaussian, split_gif, tracking
+    from animate3d_tpu_torch.utils.saving import export_to_gif_mv
+
+    t_all = time.perf_counter()
+    res, nf = RECON_RES, RECON_FRAMES
+    obj = _write_mesh_asset(os.path.join(tmp, "mesh"))
+    t0 = time.perf_counter()
+    mesh2gaussian.main(["--input_obj", obj, "--output_dir", f"{tmp}/mesh_data",
+                        "--output_name", "asset"])
+    ply, conn = f"{tmp}/mesh_data/asset.ply", f"{tmp}/mesh_data/asset.json"
+    t_m2g = time.perf_counter() - t0
+    static, wall_s, totals_s, shape_s = _cli_launches([
+        "--config", STATIC_YAML, "--test", f"system.geometry.geometry_convert_from={ply}",
+        f"exp_root_dir={tmp}/mesh_out"])
+    templates = os.path.join(static["trial_dir"], "save", "images")
+    ok_static = (totals_s == _per(composite_coarse_fwd=1)
+                 and sorted(os.listdir(templates)) == [f"{v}.png" for v in range(4)])
+    del static
+
+    g = load_gaussians(ply, 90.0, 0.0, 1.0, device="cuda")
+    amp = 0.03 * torch.randn((3, 3), generator=torch.Generator().manual_seed(1))
+    disp = (torch.linspace(0, 1, nf)[:, None, None]
+            * torch.sin(g.xyz.cpu() @ (6.0 * amp))).cuda()
+    cams = fixed_view_cameras(height=res, width=res, total_frame=nf)
+    b, n = RECON_VIEWS * nf, g.num_points
+    frame = torch.arange(b, device="cuda") % nf
+    with torch.no_grad():
+        out = render_batch(g, lambda _: (g.xyz + disp[frame], g.get_rotation().expand(b, n, 4),
+                                         g.get_scaling().expand(b, n, 3)),
+                           gs_cameras_from_batch(cams, device="cuda"),
+                           torch.as_tensor(cams["timestamps"], device="cuda"),
+                           Renderer4DConfig(height=res, width=res, back_ground_color=(1, 1, 1)),
+                           do_reconstruction=False)
+    alpha = out.alpha.cpu().numpy() > 0.5
+    gif = export_to_gif_mv(out.rgb.reshape(RECON_VIEWS, nf, res, res, 3).cpu().numpy(),
+                           f"{tmp}/mesh_video.gif")
+    del out
+    split_gif.main(["--gif_path", gif, "--output_dir", f"{tmp}/mesh_frames"])
+    t0 = time.perf_counter()
+    tracking.main(["--frames_dir", f"{tmp}/mesh_frames", "--template_dir", templates,
+                   "--output_dir", f"{tmp}/mesh_tracked"])
+    torch.cuda.synchronize()
+    t_track = time.perf_counter() - t0
+    tracked = np.stack([np.asarray(Image.open(f"{tmp}/mesh_tracked/{k}.png"))[..., 3]
+                        for k in range(b)]) > 127
+    cover, spill = float(tracked[alpha].mean()), float(tracked[~alpha].mean())
+    print(f"[mesh] {n} vertices; mesh2gaussian {t_m2g:.2f} s; static render (4 views at "
+          f"{res}^2) {wall_s:.2f} s, launches {totals_s}; tracking (propagation, "
+          f"{RECON_VIEWS} x {nf} frames at {res}^2) {t_track:.2f} s: tracked masks cover "
+          f"{cover:.4f} of the object's rendered alpha, {spill:.4f} of the rest")
+
+    extra = [f"system.connected_vertices_info_path={conn}"]
+    rec = recon_phase(tmp, ply, f"{tmp}/mesh_tracked", res, res, PER_RECON_STEP, "mesh",
+                      yaml=MESH_YAML, extra=extra)
+    system = rec.pop("system")
+    ok_mesh_arap = system.mesh_nn_idx is not None and system.cfg.sample_strategy == "light"
+    timing = recon_timing_phase(system, f"{tmp}/mesh_tracked", PER_RECON_STEP, "mesh",
+                                buckets=False, light=True)
+    ref = recon_reference_phase(system, timing.pop("batch"), PER_RECON_STEP, "mesh")
+    del system
+    base = ["--config", MESH_YAML, *_recon_args(tmp, ply, f"{tmp}/mesh_tracked", res, res),
+            *extra]
+    exp, wall_e, totals_e, shape_e = _cli_launches(base[:2] + ["--export"] + base[2:])
+    traj = os.path.join(exp["trial_dir"], "save", "gaussian_trajectory")
+    del exp
+    t0 = time.perf_counter()
+    export_animated_mesh.main(["--base_obj", obj, "--trajectory_dir", traj,
+                               "--output", f"{tmp}/mesh_anim.glb"])
+    t_glb = time.perf_counter() - t0
+    with open(f"{tmp}/mesh_anim.glb", "rb") as f:
+        raw = f.read()
+    json_len = int.from_bytes(raw[12:16], "little")
+    gltf = json.loads(raw[20:20 + json_len])
+    prim = gltf["meshes"][0]["primitives"][0]
+    n_verts = gltf["accessors"][prim["attributes"]["POSITION"]]["count"]
+    n_targets = len(prim["targets"])
+    ok_glb = (int.from_bytes(raw[:4], "little") == 0x46546C67 and n_verts == n
+              and n_targets == nf and totals_e == _per(composite_coarse_fwd=1))
+    wall = time.perf_counter() - t_all
+    print(f"[mesh] --export {wall_e:.2f} s, launches {totals_e}; GLB {len(raw) / 2 ** 20:.2f} MiB "
+          f"in {t_glb:.2f} s: {n_verts} vertices, {n_targets} morph targets; mesh-edge ARAP and "
+          f"light sampling {ok_mesh_arap}; the chain's wall {wall:.2f} s; card {_smi()}")
+    per_shape = collections.Counter(shape_s) + collections.Counter(rec["per_shape"]) + \
+        collections.Counter(timing["per_shape"]) + collections.Counter(shape_e)
+    ok = (ok_static and cover >= 0.95 and spill <= 0.01 and rec["ok"] and timing["ok"]
+          and ref["ok"] and ok_glb and ok_mesh_arap)
+    return dict(ok=ok, per_shape=dict(per_shape), wall_s=wall, step_s=timing["step_s"],
+                light_s=timing["buckets"][0], avg_s=timing["avg_s"], track_s=t_track,
+                cover=cover, ply=ply, recon_wall_s=rec["wall_s"], h_share=timing["h_share"],
+                ref_rel=ref["rel"], ref_loss_rel=ref["loss_rel"])
+
+
+def mesh_kernel_rows(ply: str) -> list:
+    """Kernel H at the mesh flow's shapes that the recon rows do not cover,
+    on the mesh asset, against its plain version: the static render (4
+    renders at 256^2: 64 coarse tiles, forward) and a step of the last 50
+    of 'light' sampling (all 15 unlocked frames: 60 renders, both ways).
+    Its 'light' steps of 8 renders take bucket 2's shape."""
+    from animate3d_tpu_torch.data.cameras import fixed_view_cameras
+    from animate3d_tpu_torch.gaussians.ply import load_gaussians
+
+    st = load_gaussians(ply, 90.0, 0.0, 1.0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fields, orig = _raster_fields("coarse", fixed_view_cameras(
+        height=RECON_RES, width=RECON_RES, total_frame=1), RECON_VIEWS, st=st)
+    rows = _composite_rows("H", "mesh static render, 4 renders at 256^2", fields, orig, gen,
+                           backward=False)
+    n_ct = (RECON_FRAMES - 1) * RECON_VIEWS * 16
+    fields, orig = _raster_fields("coarse", fixed_view_cameras(
+        height=RECON_RES, width=RECON_RES, total_frame=RECON_FRAMES - 1),
+        RECON_VIEWS * (RECON_FRAMES - 1), st=st)
+    rows += _composite_rows("H", "mesh light step at all frames, 60 renders at 256^2",
+                            fields[:n_ct].contiguous(), orig[:n_ct].contiguous(), gen)
+    for r in rows:
+        same = f"two launches bitwise equal {r['same']} " if "same" in r else ""
+        print(f"[kernel] {r['name']:<20} {r['shape']:<64} max|d| {r['max_abs_err']:.3e} "
+              f"{same}rel L2 {r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}; {r['pairs']} pairs, {r['live']} live) "
+              f"{'ok' if r['ok'] else 'FAIL'}; card {_smi()}")
+    return rows
 
 
 def _fail(msg: str) -> int:
@@ -2105,6 +2458,24 @@ def main() -> int:
             return _fail("the sampling run with both CLIP towers failed its checks")
         if unchecked("sampling-clip", e2e_clip):
             return 1
+        pretrained = _write_pretrained_tree(root)
+        tw = train_weights_phase(tmp, root, pretrained)
+        if not tw["ok"]:
+            return _fail("the trainer with weights failed its checks")
+        if unchecked("train-weights", tw):
+            return 1
+        vw = validate_weights_phase(tmp, root)
+        if not vw["ok"]:
+            return _fail("validate_weights on the artifact root failed its checks")
+        shutil.rmtree(root)
+        mesh = mesh_phase(tmp)
+        m_rows = mesh_kernel_rows(mesh["ply"])
+        if not mesh["ok"] or not all(r["ok"] for r in m_rows):
+            return _fail("the mesh-animation flow failed its checks")
+        rows += m_rows
+        checked |= {key for r in m_rows for key in r["keys"]}
+        if unchecked("mesh", mesh):
+            return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
     print(f"[summary] seconds per denoise step at 512x512: {e2e512['step_s']:.4f}; peak "
@@ -2144,6 +2515,21 @@ def main() -> int:
           f"{env['smi']}")
     print("[summary] shares of one refine step: " + "; ".join(
         f"{k} {v}" for k, v in r_timing["shares"].items()) + f"; card {env['smi']}")
+    print(f"[summary] seconds per train step with weights (train.yaml, artifact root + "
+          f"pretrained_model_path, captions and image embeds through the towers): "
+          f"cast_frozen_bf16 true {tw['bf16']['step_s']:.4f} (peak {tw['bf16']['peak_gb']:.2f} "
+          f"GiB), false {tw['f32']['step_s']:.4f} (peak {tw['f32']['peak_gb']:.2f} GiB); "
+          f"kernels vs plain at the loaded weights: loss {tw['ref']['loss_rel']:.3e}, gradient "
+          f"{tw['ref']['rel']:.3e}; validate_weights --smoke {vw['wall_s']:.2f} s; card "
+          f"{env['smi']}")
+    print(f"[summary] mesh flow (20,000-vertex mesh, mesh_animation_frame_16.yaml): seconds "
+          f"per mesh recon step: light (8 renders) {mesh['light_s']:.4f}, all frames (60 "
+          f"renders) {mesh['step_s']:.4f}, schedule average {mesh['avg_s']:.4f}; kernel H in "
+          f"the 60-render step {mesh['h_share']}; kernels vs plain: loss {mesh['ref_loss_rel']:.3e}, "
+          f"gradient {mesh['ref_rel']:.3e}; "
+          f"tracking {mesh['track_s']:.2f} s (coverage {mesh['cover']:.4f}); recon CLI "
+          f"({RECON_STEPS} steps + four-view test) {mesh['recon_wall_s']:.2f} s; the chain's "
+          f"wall {mesh['wall_s']:.2f} s; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",
