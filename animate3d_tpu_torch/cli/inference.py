@@ -14,13 +14,20 @@ the horizontal N-view GIF. Text conditioning comes from
 ``--prompt_embeds_path`` (npz with ``cond``/``uncond`` (77, D) arrays), else
 from ``--prompt`` through the text tower and tokenizer when both were
 loaded, else zeros; the IP-Adapter image embeds come from the conditioning
-renders through the vision tower when it was loaded, else zeros. Runs on
-CUDA; ``--device cpu`` exists for the tests.
+renders through the vision tower when it was loaded, else zeros.
+
+``--mesh_sp N`` (or the yaml's ``mesh_sp``), under ``torchrun`` with N
+processes (NCCL on CUDA, gloo with ``--device cpu``), shards the token axis
+of the long self-attention sites over the N ranks: K/V travel around a ring
+(``ops/attention.py::sp_ring``, ``parallel/sp_attention.py``). Every rank
+samples the same seeded run; rank 0 writes the GIF. Runs on CUDA;
+``--device cpu`` exists for the tests.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -58,6 +65,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=8673)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu is for tests")
+    parser.add_argument("--mesh_sp", type=int, default=0,
+                        help="shard the long self-attention sequences over N ranks "
+                             "(a K/V ring; run under torchrun with N processes)")
     args = parser.parse_args(argv)
 
     import yaml
@@ -72,6 +82,8 @@ def main(argv=None) -> dict:
         has_tokenizer,
         init_and_load,
     )
+    from animate3d_tpu_torch.ops.attention import sp_ring
+    from animate3d_tpu_torch.parallel import mesh as pmesh
     from animate3d_tpu_torch.pipelines.mv_sampler import (
         MVSampler,
         MVSamplerConfig,
@@ -85,6 +97,13 @@ def main(argv=None) -> dict:
         with open(args.config) as fh:
             cfg_yaml = yaml.safe_load(fh) or {}
     dev = resolve_device(args.device)
+    mesh_sp = int(cfg_yaml.get("mesh_sp", 0) or args.mesh_sp)
+    joined, mesh = False, None
+    if mesh_sp > 1:
+        dev, joined = pmesh.init_distributed(dev)
+        mesh = pmesh.make_mesh(dp=1, sp=mesh_sp)
+        if mesh.is_main:
+            print(f"[mesh] sp={mesh_sp}: long self-attention K/V ride the ring")
 
     # 1. models, then the weights on disk (seeded where none are given)
     model_size = args.model_size or cfg_yaml.get("model_size", "full")
@@ -144,7 +163,11 @@ def main(argv=None) -> dict:
     sampler = MVSampler(unet, scfg, scheduler)
     ffl = encode_conditioning_images(vae, cond_images * 2.0 - 1.0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    latents = sampler.sample(ffl, text_cond, text_uncond, image_embeds, generator=gen)
+    try:
+        with sp_ring(mesh) if mesh is not None else contextlib.nullcontext():
+            latents = sampler.sample(ffl, text_cond, text_uncond, image_embeds, generator=gen)
+    finally:
+        pmesh.leave(joined)
     video = decode_video(vae, latents)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -152,8 +175,9 @@ def main(argv=None) -> dict:
 
     save_name = "-".join(args.prompt.replace("/", "").split(" ")[:10]) or "sample"
     out = os.path.join(args.output_dir, args.save_name, f"0-{save_name}.gif")
-    export_to_gif_mv(video.cpu().numpy(), out)
-    print(f"saved {out}")
+    if mesh is None or mesh.is_main:
+        export_to_gif_mv(video.cpu().numpy(), out)
+        print(f"saved {out}")
     return {"gif": out, "latents": latents, "text_cond": text_cond, "image_embeds": image_embeds,
             "loaded": loaded, "step_seconds": list(sampler.step_seconds),
             "run_seconds": run_seconds}

@@ -31,11 +31,21 @@ mp4 writer exists); ``system.save_gaussian_trajectory`` adds per-frame
 120, at ``data.eval_height/width``, default 512²) as a video and
 ``save/val/orbit.gif``.
 
+``trainer.mesh_dp=N`` trains data parallel over N processes started by
+``torchrun`` (NCCL on CUDA, gloo with ``--device cpu``): each rank renders
+its slice of the step's view·frame items and of the SDS batch, the field's
+gradients are summed over the ranks (``systems/animate3d.py``); rank 0
+writes the logs, checkpoints, previews and the ``--test`` pass.
+``--typecheck`` installs the boundary shape contracts
+(``core/typecheck.py``); ``--gradio`` keeps a one-line progress file,
+``<trial_dir>/progress``. Each run writes ``parsed.yaml``, ``cmd.txt`` and
+``code_snapshot.zip`` (the port's sources) into the trial directory.
+
 Runs on ``cuda`` unless ``--device cpu``; raises when CUDA is absent. The
 4D stage is float32 (on CUDA, ``resolve_device`` turns TF32 off for
 matmuls and convolutions: the K-planes and MLP products are f32 in the
 reference); refine's frozen guidance UNet runs in bf16, as in the JAX
-package. Not ported yet: dp meshes (``trainer.mesh_dp``).
+package.
 """
 
 from __future__ import annotations
@@ -43,10 +53,32 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
+
+
+PORT_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SNAPSHOT_EXT = (".py", ".cu", ".cuh", ".yaml")
+
+
+def snapshot_provenance(trial_dir: str, argv) -> None:
+    """The command line (``cmd.txt``) and a zip of the port's sources
+    (``code_snapshot.zip``: its ``.py``, ``.cu``, ``.cuh`` and ``.yaml``
+    files, by their path in the repository)."""
+    with open(os.path.join(trial_dir, "cmd.txt"), "w") as f:
+        f.write(" ".join(["python", "-m", "animate3d_tpu_torch.cli.launch", *argv]) + "\n")
+    with zipfile.ZipFile(os.path.join(trial_dir, "code_snapshot.zip"), "w",
+                         zipfile.ZIP_DEFLATED) as z:
+        for root, dirs, files in os.walk(PORT_ROOT):
+            dirs[:] = sorted(d for d in dirs if d not in ("__pycache__", "_build"))
+            for name in sorted(files):
+                if name.endswith(SNAPSHOT_EXT):
+                    path = os.path.join(root, name)
+                    z.write(path, os.path.relpath(path, os.path.dirname(PORT_ROOT)))
 
 
 def build_system(cfg, seed: int = 0, device=None):
@@ -104,15 +136,22 @@ def _validation_render(cfg, system, step: int) -> None:
                      os.path.join(cfg.trial_dir, "save", "val", f"it{step}.gif"))
 
 
-def run_train(cfg, system) -> dict:
+def run_train(cfg, system, mesh=None, progress=None) -> dict:
+    """Optimise the field; on a dp ``mesh`` (dp > 1) every rank steps and
+    rank 0 writes."""
     from animate3d_tpu_torch.core.checkpoint import save_checkpoint
     from animate3d_tpu_torch.core.registry import find
     from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
     import animate3d_tpu_torch.data.multi_image  # noqa: F401 — registers the datamodule
+    from animate3d_tpu_torch.parallel import mesh as pmesh
     from animate3d_tpu_torch.utils.logging import MetricsLogger
 
-    if int(cfg.trainer.get("mesh_dp", 0) or 0) > 1:
-        raise NotImplementedError("trainer.mesh_dp (data-parallel recon) is not ported yet")
+    main_rank = mesh is None or mesh.is_main
+    if mesh is not None:
+        pmesh.replicate(mesh, list(system.field.parameters()))
+        system.mesh = mesh
+        if main_rank:
+            print(f"[mesh] dp={mesh.dp} over {mesh.dp} processes")
     dataset = find(cfg.data_type or "simple-multi-image-datamodule").from_config(
         cfg.data, seed=cfg.seed)
     dev = system.device
@@ -129,7 +168,7 @@ def run_train(cfg, system) -> dict:
     log_every = cfg.trainer.get("log_every_n_steps", 50)
     geval_every = int(cfg.trainer.get("guidance_eval_interval", 0) or 0)
     ckpt_dir = os.path.join(cfg.trial_dir, "ckpts")
-    logger = MetricsLogger(os.path.join(cfg.trial_dir, "metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(cfg.trial_dir, "metrics.jsonl")) if main_rank else None
     pending, logged = [], []
     t0 = time.perf_counter()
 
@@ -140,14 +179,18 @@ def run_train(cfg, system) -> dict:
         values = [(s, {k: float(v) for k, v in m.items()}) for s, m in pending]  # syncs
         window = (time.perf_counter() - t0) / len(pending)
         for s, m in values:
-            logger.log(s, {**m, "sec_per_step": window})
+            if logger is not None:
+                logger.log(s, {**m, "sec_per_step": window})
             logged.append({"step": s, **m, "sec_per_step": window})
-        msg = " ".join(f"{k}={v:.5f}" for k, v in values[-1][1].items())
-        print(f"[{values[-1][0]}/{max_steps}] {msg} ({window:.3f}s/it avg)")
+        if main_rank:
+            msg = " ".join(f"{k}={v:.5f}" for k, v in values[-1][1].items())
+            print(f"[{values[-1][0]}/{max_steps}] {msg} ({window:.3f}s/it avg)")
         pending.clear()
         t0 = time.perf_counter()
 
     for step in range(max_steps):
+        if progress is not None and step % log_every == 0:
+            progress.train_step(step, max_steps)
         guidance_batch = None
         if system.do_guidance and dataset.random_sampler is not None:
             guidance_batch = _guidance_batch(system, dataset.batch(step)["random_camera"])
@@ -157,11 +200,15 @@ def run_train(cfg, system) -> dict:
         if geval_every and guidance_batch is not None and (step + 1) % geval_every == 0:
             from animate3d_tpu_torch.utils.saving import Saver
 
+            # every rank previews, so that the generators stay in step
             imgs = system.guidance_preview(
                 guidance_batch, num_steps=int(cfg.trainer.get("guidance_eval_steps", 25)))
-            Saver(os.path.join(cfg.trial_dir, "save")).gif_mv(
-                f"guidance_eval/it{step + 1}.gif", imgs.cpu().numpy())
-            print(f"[guidance_eval] wrote teacher preview at step {step + 1}")
+            if main_rank:
+                Saver(os.path.join(cfg.trial_dir, "save")).gif_mv(
+                    f"guidance_eval/it{step + 1}.gif", imgs.cpu().numpy())
+                print(f"[guidance_eval] wrote teacher preview at step {step + 1}")
+        if not main_rank:
+            continue
         if val_every and (step + 1) % val_every == 0 and step + 1 < max_steps:
             _validation_render(cfg, system, step + 1)
         if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
@@ -169,7 +216,10 @@ def run_train(cfg, system) -> dict:
                                                  "opt_state": system.opt.state_dict(),
                                                  "step": step + 1})
     flush()
-    print(f"[train] done; checkpoints in {ckpt_dir}")
+    if progress is not None:
+        progress.train_step(max_steps, max_steps)
+    if main_rank:
+        print(f"[train] done; checkpoints in {ckpt_dir}")
     return {"metrics": logged}
 
 
@@ -221,7 +271,7 @@ def _quality_report(cfg, system, rgb: np.ndarray, saver) -> dict:
     return report
 
 
-def run_test(cfg, system) -> dict:
+def run_test(cfg, system, progress=None) -> dict:
     from animate3d_tpu_torch.data.cameras import (
         fixed_view_cameras,
         gs_cameras_from_batch,
@@ -230,6 +280,8 @@ def run_test(cfg, system) -> dict:
     from animate3d_tpu_torch.utils.saving import Saver
 
     _restore_for_eval(cfg, system, "test")
+    if progress is not None:
+        progress.write("Rendering video ...")
     test_option = cfg.system.get("test_option", "testset")
     n_frame = system.cfg.n_frame
     rc = cfg.data.get("random_camera", {}) or {}
@@ -303,29 +355,57 @@ def main(argv=None) -> dict:
         group.add_argument(flag, action="store_true")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu; CUDA asked for and absent raises")
+    parser.add_argument("--typecheck", action="store_true",
+                        help="check tensor shapes and dtypes at the 4D stage's boundaries")
+    parser.add_argument("--gradio", action="store_true",
+                        help="UI mode: one-line progress in <trial_dir>/progress")
     parser.add_argument("extras", nargs="*", help="dotted config overrides")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
     from animate3d_tpu_torch.core.config import dump_config, load_config
     from animate3d_tpu_torch.core.device import resolve_device
+    from animate3d_tpu_torch.parallel import mesh as pmesh
+    from animate3d_tpu_torch.utils.logging import ProgressWriter
 
+    if args.typecheck:
+        from animate3d_tpu_torch.core.typecheck import enable_typecheck
+
+        enable_typecheck()
     device = resolve_device(args.device)
     cfg = load_config(args.config, cli_args=args.extras)
-    os.makedirs(cfg.trial_dir, exist_ok=True)
-    dump_config(os.path.join(cfg.trial_dir, "parsed.yaml"),
-                {"data": cfg.data, "system": cfg.system, "trainer": cfg.trainer})
-    system = build_system(cfg, seed=cfg.seed, device=device)
-    res = {"system": system, "trial_dir": cfg.trial_dir}
-    if args.validate:
-        res.update(run_validate(cfg, system))
+    mesh_dp = int(cfg.trainer.get("mesh_dp", 0) or 0) if args.train else 0
+    joined, mesh = False, None
+    if mesh_dp > 1:
+        device, joined = pmesh.init_distributed(device)
+        mesh = pmesh.make_mesh(dp=mesh_dp)
+    main_rank = mesh is None or mesh.is_main
+    try:
+        if main_rank:
+            os.makedirs(cfg.trial_dir, exist_ok=True)
+            dump_config(os.path.join(cfg.trial_dir, "parsed.yaml"),
+                        {"data": cfg.data, "system": cfg.system, "trainer": cfg.trainer})
+            snapshot_provenance(cfg.trial_dir, argv)
+        progress = (ProgressWriter(os.path.join(cfg.trial_dir, "progress"))
+                    if args.gradio and main_rank else None)
+        system = build_system(cfg, seed=cfg.seed, device=device)
+        res = {"system": system, "trial_dir": cfg.trial_dir}
+        if args.validate:
+            res.update(run_validate(cfg, system))
+            return res
+        if args.train:
+            load_system_weights(cfg, system)
+            res.update(run_train(cfg, system, mesh, progress))
+        if args.export:
+            cfg.system["save_gaussian_trajectory"] = True
+        if main_rank:
+            system.mesh = None
+            res.update(run_test(cfg, system, progress))
+        if progress is not None:
+            progress.close()
         return res
-    if args.train:
-        load_system_weights(cfg, system)
-        res.update(run_train(cfg, system))
-    if args.export:
-        cfg.system["save_gaussian_trajectory"] = True
-    res.update(run_test(cfg, system))
-    return res
+    finally:
+        pmesh.leave(joined)
 
 
 if __name__ == "__main__":

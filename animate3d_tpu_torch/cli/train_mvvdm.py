@@ -1,6 +1,7 @@
-"""MV-VDM trainer CLI of the PyTorch port, on one device.
+"""MV-VDM trainer CLI of the PyTorch port, on one device or data parallel.
 
     python -m animate3d_tpu_torch.cli.train_mvvdm --config <yaml> [key.path=value ...]
+    torchrun --nproc_per_node <n> -m animate3d_tpu_torch.cli.train_mvvdm --config <yaml>
 
 Reads the keys of ``configs/training/train.yaml`` (and of the JAX CLI,
 ``animate3d_tpu/cli/train_mvvdm.py``): builds the MV motion UNet + VAE from
@@ -21,8 +22,18 @@ tower for the image embeds; without a tower (or a tokenizer) the
 conditioning is zeros, with a warning (smoke mode). The UNet computes in
 bf16 on CUDA with f32 trainable parameters; the frozen ones are stored in
 bf16 (``cast_frozen_bf16: true``, the default) or kept in f32 (``false``).
-``use_wandb`` and ``zero_sharded_optimizer`` raise: not ported. Runs on
-CUDA; ``--device cpu`` exists for the tests.
+
+Under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; NCCL on
+CUDA, gloo with ``--device cpu``) the ranks are data parallel, as the JAX
+trainer's dp mesh: the global batch is ``train_batch_size`` x world size
+(also ``scale_lr``'s factor), each rank reads and encodes its slice, draws
+the global batch's noise and keeps its rows, gradients and the logged loss
+are averaged over the ranks; ``zero_sharded_optimizer: true`` shards the
+AdamW moments (ZeRO-1; a no-op at one rank, as in JAX). Only rank 0 writes
+the sanity GIF, metrics, checkpoints and validation GIFs (every rank
+samples, so the generators stay in step); every rank resumes. ``use_wandb``
+raises: wandb publishes to an outside service. Runs on CUDA;
+``--device cpu`` exists for the tests.
 """
 
 from __future__ import annotations
@@ -36,11 +47,11 @@ import torch
 
 
 def _check_supported(cfg: dict) -> None:
-    """Raise on config keys whose feature the port does not have yet,
-    rather than train without it."""
-    for key in ("use_wandb", "zero_sharded_optimizer"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}: not ported yet")
+    """Raise on config keys whose feature the port does not have, rather
+    than train without it."""
+    if cfg.get("use_wandb"):
+        raise NotImplementedError("use_wandb: not ported (wandb publishes to an outside "
+                                  "service); metrics.jsonl and tb/ hold the metrics")
 
 
 def load_pretrained_model_path(base: str, unet, vae) -> dict:
@@ -66,7 +77,8 @@ def main(argv=None) -> dict:
     step run), "step_seconds" (wall per step, ended by a device
     synchronise on CUDA), "start_step", "loaded" (the families read from
     files), "conditioning" (the first batch's text_ctx, null_text_ctx and
-    image_embeds)}."""
+    image_embeds), "dp" and "backend" (the process group's, None without
+    one)}."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -87,6 +99,7 @@ def main(argv=None) -> dict:
     from animate3d_tpu_torch.models.clip import encode_ip_adapter_images
     from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
     from animate3d_tpu_torch.models.factory import build_models, has_tokenizer, init_and_load
+    from animate3d_tpu_torch.parallel import mesh as pmesh
     from animate3d_tpu_torch.pipelines.train_mvvdm import (
         MVVDMTrainConfig,
         TrainBatch,
@@ -103,6 +116,9 @@ def main(argv=None) -> dict:
     cfg = deep_merge(cfg, parse_cli_overrides(args.extras))
     _check_supported(cfg)
     dev = resolve_device(args.device)
+    dev, joined = pmesh.init_distributed(dev)
+    mesh = pmesh.make_mesh()
+    main_rank = mesh.is_main
 
     out_dir = cfg.get("output_dir", "outputs/mvvdm")
     os.makedirs(out_dir, exist_ok=True)
@@ -122,7 +138,7 @@ def main(argv=None) -> dict:
     base = cfg.get("pretrained_model_path")
     if base and os.path.isdir(base):
         loaded |= set(load_pretrained_model_path(base, unet, vae))
-    if ckpt_flag:
+    if ckpt_flag and main_rank:
         print("[train] gradient checkpointing (block recompute) enabled")
     # released files are f32: the frozen weights are rounded to the compute
     # dtype once, here, unless cast_frozen_bf16 is false
@@ -137,7 +153,7 @@ def main(argv=None) -> dict:
         sample_size=sample_size, sample_n_frames=n_frames, num_views=n_views,
         total_frames=cfg["train_data"].get("total_frames", 48),
         elevation=cfg["train_data"].get("elevation", 15.0)), seed=seed)
-    batch_size = cfg.get("train_batch_size", 1)
+    batch_size = cfg.get("train_batch_size", 1) * mesh.dp  # the global batch
     max_steps = cfg.get("max_train_steps",
                         cfg.get("max_train_epoch", 20) * max(len(dataset), 1))
     tcfg = MVVDMTrainConfig(
@@ -153,7 +169,12 @@ def main(argv=None) -> dict:
         scale_lr=cfg.get("scale_lr", False),
         lr_scale_factor=float(batch_size),
     )
-    opt = make_optimizer(masters, tcfg)
+    pmesh.replicate(mesh, list(masters.values()))
+    zero = bool(cfg.get("zero_sharded_optimizer", False))
+    opt = make_optimizer(masters, tcfg, mesh, zero)
+    if mesh.dp > 1 and main_rank:
+        print(f"[mesh] dp={mesh.dp}: global batch {batch_size}"
+              + (", ZeRO-1 optimizer sharding" if opt.sharded else ""))
     scheduler = DDIMScheduler(SchedulerConfig(), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -173,10 +194,11 @@ def main(argv=None) -> dict:
         opt.load_state_dict(state["optimizer"])
         gen.set_state(state["generator"])
         start_step = int(state["step"])
-        print(f"[resume] {latest} @ step {start_step}")
+        if main_rank:
+            print(f"[resume] {latest} @ step {start_step}")
 
     depth = int(cfg.get("prefetch_depth", 2))
-    batches = dataset.iterate(batch_size=batch_size)
+    batches = dataset.iterate(batch_size=batch_size, keep=pmesh.shard_rows(mesh, batch_size))
     prefetch = Prefetcher(batches, depth=depth) if depth > 0 else None
     it = prefetch or batches
 
@@ -222,7 +244,7 @@ def main(argv=None) -> dict:
         ctx = encode_captions(list(captions)).repeat_interleave(n, dim=0)
         return ctx, null_ctx_row.expand(ctx.shape).clone()
 
-    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl")) if main_rank else None
     ckpt_every = cfg.get("checkpointing_steps", 1000)
     validation_steps = cfg.get("validation_steps", 0)
     validation_tuple = tuple(cfg.get("validation_steps_tuple", ()))
@@ -230,13 +252,17 @@ def main(argv=None) -> dict:
 
     @torch.no_grad()
     def vae_sample(imgs: torch.Tensor, chunk: int = 16) -> torch.Tensor:
-        """Posterior *sample* of (M, H, W, 3) images, ``chunk`` at a time."""
-        outs = []
-        for i in range(0, imgs.shape[0], chunk):
-            mean, logvar = vae.encode(imgs[i:i + chunk])
-            eps = torch.randn(mean.shape, generator=gen, device=dev)
-            outs.append(mean + torch.exp(0.5 * logvar) * eps)
-        return torch.cat(outs)
+        """Posterior *sample* of this rank's (M, H, W, 3) images, encoded
+        ``chunk`` at a time; the noise is drawn for every rank's images, a
+        chunk at a time as at one rank, and this rank's rows are kept."""
+        m = imgs.shape[0]
+        total, lo = m * mesh.dp, m * mesh.dp_rank
+        eps = torch.cat([torch.randn((min(chunk, total - i), lat, lat,
+                                      vae.config.latent_channels), generator=gen, device=dev)
+                         for i in range(0, total, chunk)])[lo:lo + m]
+        mean, logvar = (torch.cat(p) for p in zip(*(vae.encode(imgs[i:i + chunk])
+                                                     for i in range(0, m, chunk))))
+        return mean + torch.exp(0.5 * logvar) * eps
 
     def run_validation(step: int, raw) -> None:
         """Sample on the first video's conditioning (its frame-0 renders,
@@ -261,16 +287,21 @@ def main(argv=None) -> dict:
             freeinit_enabled=False, i2v_cond_time_zero=tcfg.i2v_cond_time_zero)
         latents = MVSampler(unet, scfg, scheduler).sample(
             ffl, text_cond, text_uncond, encode_frame0(frame0), generator=gen)
-        out = os.path.join(out_dir, "samples", f"sample-{step}.gif")
-        export_to_gif_mv(decode_video(vae, latents).cpu().numpy(), out)
-        print(f"[val] wrote {out}")
+        video = decode_video(vae, latents)
+        if main_rank:
+            out = os.path.join(out_dir, "samples", f"sample-{step}.gif")
+            export_to_gif_mv(video.cpu().numpy(), out)
+            print(f"[val] wrote {out}")
 
     def save(step: int) -> None:
+        opt_state = opt.state_dict()  # collective under ZeRO-1
+        if not main_rank:
+            return
         frozen = {k: v for k, v in unet.state_dict().items() if k not in masters}
         trained = {k: v.detach() for k, v in masters.items()}
         save_checkpoint(ckpt_dir, step, {
             "step": step, "masters": trained, "frozen": frozen,
-            "optimizer": opt.state_dict(), "generator": gen.get_state()})
+            "optimizer": opt_state, "generator": gen.get_state()})
         save_checkpoint(os.path.join(out_dir, "motion_modules"), step,
                         {"params": extract_motion_modules(trained)}, keep=2)
 
@@ -280,7 +311,7 @@ def main(argv=None) -> dict:
             t0 = time.perf_counter()
             raw = next(it)
             b, n, f = raw["pixel_values"].shape[:3]
-            if step == start_step:
+            if step == start_step and main_rank:
                 vids = (raw["pixel_values"].reshape(b * n, f, sample_size, sample_size, 3) + 1) / 2
                 save_videos_grid(vids, os.path.join(out_dir, "sanity_check.gif"), n_rows=n)
             pixels = torch.as_tensor(raw["pixel_values"], device=dev)
@@ -296,14 +327,15 @@ def main(argv=None) -> dict:
             if conditioning is None:
                 conditioning = {"text_ctx": text_ctx, "null_text_ctx": null_ctx,
                                 "image_embeds": image_embeds}
-            metrics = train_step(unet, opt, batch, tcfg, scheduler, gen)
+            metrics = train_step(unet, opt, batch, tcfg, scheduler, gen, mesh)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             step_seconds.append(time.perf_counter() - t0)
             metrics = {k: float(v) for k, v in metrics.items()}
             metrics_all.append(metrics)
-            logger.log(step, {**metrics, "sec_per_step": step_seconds[-1]})
-            if step % log_every == 0 or step + 1 == max_steps:
+            if main_rank:
+                logger.log(step, {**metrics, "sec_per_step": step_seconds[-1]})
+            if main_rank and (step % log_every == 0 or step + 1 == max_steps):
                 print(f"[{step}/{max_steps}] loss={metrics['loss']:.5f} "
                       f"grad_norm={metrics['grad_norm']:.4f} ({step_seconds[-1]:.3f} s/it)")
             if ((validation_steps and (step + 1) % validation_steps == 0)
@@ -314,9 +346,10 @@ def main(argv=None) -> dict:
     finally:
         if prefetch is not None:
             prefetch.close()
+        pmesh.leave(joined)
     return {"unet": unet, "optimizer": opt, "metrics": metrics_all,
             "step_seconds": step_seconds, "start_step": start_step, "loaded": loaded,
-            "conditioning": conditioning}
+            "conditioning": conditioning, "dp": mesh.dp, "backend": mesh.backend}
 
 
 if __name__ == "__main__":

@@ -69,7 +69,9 @@ class PromptProcessor:
             raise RuntimeError(
                 f"No cached embedding for {prompt!r} and no text encoder available")
         emb = np.asarray(self.encode_fn([prompt])[0])
-        np.savez(path, emb=emb)
+        tmp = f"{path[:-4]}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, emb=emb)
+        os.replace(tmp, path)  # whole files only: data-parallel ranks share the cache
         return emb
 
     def __call__(self, prompt: str, negative_prompt: str = "",

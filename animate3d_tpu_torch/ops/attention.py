@@ -25,6 +25,8 @@ site runs through :class:`FlashAttentionFn` (A forward, D backward) or
 the JAX package's does (:func:`forced_plan`); under ``"packed_flash"`` kernel
 B computes the function of the TPU's ``packed_temporal_flash`` (kernel F,
 the unpadded-layout packed forward), counted as ``packed_temporal``.
+:func:`sp_ring` routes the long self-attention sites of its scope through
+the sequence-parallel ring (``parallel/sp_attention.py``, plain torch).
 The wrappers take their plain version only for CPU tensors; a CUDA tensor
 goes to the kernel or raises.
 """
@@ -521,6 +523,27 @@ def attention_backend(name: str):
         _override.name = prev
 
 
+# the shortest sequence the sp ring takes (the JAX package's SP_MIN_SEQ):
+# shorter ones, such as the 16-token temporal sites, would spend more on the
+# ring's hops than on their whole local attention
+SP_MIN_SEQ = 512
+
+
+@contextlib.contextmanager
+def sp_ring(mesh, min_seq: Optional[int] = None):
+    """Route the self-attention calls of this scope (this thread) through
+    ring attention over ``mesh``'s sp group (``parallel/sp_attention.py``),
+    with the JAX package's gate: q and k of one shape, S divisible by the sp
+    size and at least max(2 x sp, ``min_seq``) (default :data:`SP_MIN_SEQ`).
+    Other calls run locally as routed."""
+    prev = getattr(_override, "sp", None)
+    _override.sp = (mesh, SP_MIN_SEQ if min_seq is None else min_seq)
+    try:
+        yield
+    finally:
+        _override.sp = prev
+
+
 def forced_plan(batch: int, sq: int, sk: int, channels: int, num_heads: int,
                 self_attention: bool, same_shapes: bool, on_cuda: bool, backend: str) -> str:
     """A site's route under a forced backend, as the JAX package routes it
@@ -564,6 +587,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1] // num_heads
     if scale is None:
         scale = d ** -0.5
+    sp = getattr(_override, "sp", None)
+    if sp is not None:
+        mesh, min_seq = sp
+        if (q.shape == k.shape and q.shape[1] % mesh.sp == 0
+                and q.shape[1] >= max(2 * mesh.sp, min_seq)):
+            from animate3d_tpu_torch.parallel import sp_attention
+
+            return sp_attention.ring_attention_sharded(mesh, q, k, v, num_heads, scale)
     backend = getattr(_override, "name", None) or "auto"
     on_cuda = q.device.type == "cuda"
     if backend == "auto":

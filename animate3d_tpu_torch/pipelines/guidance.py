@@ -120,28 +120,35 @@ class AnimateMVGuidance:
     def loss(self, rgb: torch.Tensor, text_cond: torch.Tensor, text_uncond: torch.Tensor,
              camera_16d: torch.Tensor, image_embeds: torch.Tensor, t_video: torch.Tensor,
              draws: Optional[GuidanceDraws] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             shard: Optional[Tuple[slice, Callable]] = None) -> torch.Tensor:
         """The SDS loss of renders ``rgb`` (B·N·F, H, W, 3) in [0, 1];
-        gradients flow to ``rgb`` through the VAE encode only."""
+        gradients flow to ``rgb`` through the VAE encode only.
+
+        ``shard = (rows, gather)`` (data parallel): ``rgb`` holds only the
+        rows ``rows`` of the batch, which are encoded here; ``gather``
+        concatenates every rank's rows (its backward keeping this rank's)
+        for the UNet, which couples a video's views and frames."""
         cfg = self.cfg
         draws = draws or GuidanceDraws()
+        rows, gather = shard or (slice(None), lambda x: x)
         n, f = cfg.n_view, cfg.n_frame
-        bnf = rgb.shape[0]
-        bn = bnf // f
-        b = bn // n
+        b = t_video.shape[0]
+        bn = b * n
         if self.image_encode is not None:
             with torch.no_grad():
-                firsts = rgb.detach().reshape(bn, f, *rgb.shape[1:])[:, 0]
+                firsts = gather(rgb.detach()).reshape(bn, f, *rgb.shape[1:])[:, 0]
                 image_embeds = self.image_encode(firsts).float()
         s = cfg.image_size
         if rgb.shape[1] != s or rgb.shape[2] != s:
             rgb = resize_bilinear(rgb, s, s)
         mean, logvar = self._chunked_vae_encode(rgb * 2.0 - 1.0)
+        # drawn for the whole batch, so that every rank's generator stays in step
         eps_post = draws.posterior if draws.posterior is not None else torch.randn(
-            mean.shape, generator=generator, device=mean.device)
-        latents = (mean + torch.exp(0.5 * logvar) * eps_post) * cfg.latent_scaling
+            (bn * f, *mean.shape[1:]), generator=generator, device=mean.device)
+        latents = (mean + torch.exp(0.5 * logvar) * eps_post[rows]) * cfg.latent_scaling
         lh, lw, lc = latents.shape[1:]
-        latents = latents.reshape(bn, f, lh, lw, lc)
+        latents = gather(latents).reshape(bn, f, lh, lw, lc)
         t = t_video.to(latents.device).long().repeat_interleave(n)
         with torch.no_grad():
             rest = latents[:, 1:].detach()

@@ -20,6 +20,14 @@ Frozen parameters get no gradient, no state and no update.
 
 The random draws come from an explicit ``torch.Generator``; :func:`loss_fn`
 also takes the draws as tensors so that tests can hand it the ones JAX made.
+
+Data parallel (a ``parallel.mesh.Mesh`` with dp > 1): each rank holds its
+slice of the global batch, draws the *global* batch's timesteps, noise and
+CFG drop from the shared seeded generator and keeps its rows, so a step
+equals the one-process step on the global batch; gradients and the logged
+loss are means over the ranks. ``zero_sharded_optimizer`` (ZeRO-1) keeps on
+each rank the AdamW moments of its slice of every master whose leading axis
+divides by dp, updates that slice and all-gathers the masters.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from animate3d_tpu_torch.models.diffusion import DDIMScheduler
+from animate3d_tpu_torch.parallel import mesh as pmesh
 
 TRAINABLE_KEY_MARKERS = (
     "motion_modules",  # all temporal transformers
@@ -136,16 +145,35 @@ class MasterAdamW:
     no epsilon (``clip_grad_norm_`` adds 1e-6). ``torch.optim.AdamW``'s math
     is optax ``adamw``'s (decoupled decay, eps outside the square root); the
     learning rate of each step is the schedule at the count before it, as
-    optax's ``scale_by_schedule`` reads it."""
+    optax's ``scale_by_schedule`` reads it.
 
-    def __init__(self, masters: Dict[str, torch.Tensor], cfg: MVVDMTrainConfig):
+    With ``zero`` on a mesh of dp > 1 (ZeRO-1) AdamW steps this rank's
+    slices of the masters that ``shard_leading_where_divisible`` shards
+    (views, so the update lands in the masters) and the whole of the others,
+    then the masters are all-gathered; :meth:`state_dict` gathers the
+    moments, so a checkpoint reads as a replicated one, and
+    :meth:`load_state_dict` takes this rank's slices of them."""
+
+    def __init__(self, masters: Dict[str, torch.Tensor], cfg: MVVDMTrainConfig,
+                 mesh: Optional[pmesh.Mesh] = None, zero: bool = False):
         self.masters = masters
         self.max_grad_norm = cfg.max_grad_norm
         self.schedule = make_lr_schedule(cfg)
         self.count = 0
-        self.adamw = torch.optim.AdamW(list(masters.values()), lr=self.schedule(0),
+        self.mesh = mesh
+        tensors = list(masters.values())
+        self.shards = (pmesh.shard_leading_where_divisible(mesh, tensors)
+                       if zero and mesh is not None else [None] * len(tensors))
+        params = [m.detach()[sl] if sl is not None else m
+                  for m, sl in zip(tensors, self.shards)]
+        self.adamw = torch.optim.AdamW(params, lr=self.schedule(0),
                                        betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
                                        weight_decay=cfg.weight_decay)
+        self._params = params
+
+    @property
+    def sharded(self) -> bool:
+        return any(sl is not None for sl in self.shards)
 
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """One update from the gradients of the masters, in their order
@@ -154,27 +182,49 @@ class MasterAdamW:
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if not bool(norm < self.max_grad_norm):
             grads = [g / norm * self.max_grad_norm for g in grads]
-        for m, g in zip(self.masters.values(), grads):
-            m.grad = g
+        for p, g, sl in zip(self._params, grads, self.shards):
+            p.grad = g if sl is None else g[sl]
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()
         self.count += 1
-        for m in self.masters.values():
-            m.grad = None
+        for p in (*self._params, *self.masters.values()):
+            p.grad = None
+        if self.sharded:
+            pmesh.gather_shards_(self.mesh, list(self.masters.values()), self.shards)
         return norm
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "adamw": self.adamw.state_dict()}
+        """The replicated layout's state (collective under ZeRO-1: every
+        rank calls it)."""
+        sd = self.adamw.state_dict()
+        if self.sharded:
+            state = {i: dict(st) for i, st in sd["state"].items()}
+            for i, sl in enumerate(self.shards):
+                if sl is not None and i in state:
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        state[i][key] = pmesh.all_gather_rows(self.mesh, state[i][key])
+            sd = {**sd, "state": state}
+        return {"count": self.count, "adamw": sd}
 
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state["count"])
-        self.adamw.load_state_dict(state["adamw"])
+        sd = state["adamw"]
+        if self.sharded:
+            st = {i: dict(v) for i, v in sd["state"].items()}
+            for i, sl in enumerate(self.shards):
+                if sl is not None and i in st:
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        st[i][key] = st[i][key][sl].clone()
+            sd = {**sd, "state": st}
+        self.adamw.load_state_dict(sd)
 
 
-def make_optimizer(masters: Dict[str, torch.Tensor], cfg: MVVDMTrainConfig) -> MasterAdamW:
-    """The JAX package's ``make_optimizer`` over the trainable masters."""
-    return MasterAdamW(masters, cfg)
+def make_optimizer(masters: Dict[str, torch.Tensor], cfg: MVVDMTrainConfig,
+                   mesh: Optional[pmesh.Mesh] = None, zero: bool = False) -> MasterAdamW:
+    """The JAX package's ``make_optimizer`` over the trainable masters
+    (ZeRO-1 on ``mesh`` when ``zero``; a no-op at dp 1, as in JAX)."""
+    return MasterAdamW(masters, cfg, mesh, zero)
 
 
 class TrainBatch(NamedTuple):
@@ -188,14 +238,23 @@ class TrainBatch(NamedTuple):
 
 
 def draw(batch: TrainBatch, cfg: MVVDMTrainConfig, num_train_timesteps: int,
-         generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(t per video (B,), noise for frames 1..F-1, CFG drop per video (B,))."""
+         generator: torch.Generator, mesh: Optional[pmesh.Mesh] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(t per video (B,), noise for frames 1..F-1, CFG drop per video (B,)).
+    On a mesh of dp > 1 the draws are the global batch's (dp x B videos)
+    and this rank's rows are kept."""
     lat = batch.latents
-    b = lat.shape[0] // cfg.num_views
+    n = cfg.num_views
+    dp = mesh.dp if mesh is not None else 1
+    b = lat.shape[0] // n * dp
     dev = lat.device
     t = torch.randint(0, num_train_timesteps, (b,), generator=generator, device=dev)
-    noise = torch.randn(lat[:, 1:].shape, generator=generator, device=dev, dtype=lat.dtype)
+    noise = torch.randn((b * n, lat.shape[1] - 1) + tuple(lat.shape[2:]), generator=generator,
+                        device=dev, dtype=lat.dtype)
     drop = torch.rand((b,), generator=generator, device=dev) < cfg.cfg_dropout_prob
+    if dp > 1:
+        videos, items = pmesh.shard_rows(mesh, b), pmesh.shard_rows(mesh, b * n)
+        t, noise, drop = t[videos], noise[items], drop[videos]
     return t, noise, drop
 
 
@@ -214,19 +273,28 @@ def loss_fn(unet: torch.nn.Module, batch: TrainBatch, t: torch.Tensor, noise: to
     return torch.mean((eps[:, 1:].float() - noise.float()) ** 2)
 
 
-def apply_gradients(unet: torch.nn.Module, opt: MasterAdamW) -> torch.Tensor:
+def apply_gradients(unet: torch.nn.Module, opt: MasterAdamW,
+                    mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
     """Step the masters (the module's trainable parameters) on their
-    gradients and clear them. Returns the global gradient norm before
-    clipping."""
+    gradients, averaged over the mesh's dp ranks, and clear them. Returns
+    the global gradient norm before clipping."""
     grads = [torch.zeros_like(m) if m.grad is None else m.grad for m in opt.masters.values()]
+    if mesh is not None:
+        pmesh.all_reduce_(mesh, grads, "mean")
     return opt.step(grads)
 
 
 def train_step(unet: torch.nn.Module, opt: MasterAdamW, batch: TrainBatch,
                cfg: MVVDMTrainConfig, scheduler: DDIMScheduler,
-               generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """One optimisation step; returns {"loss", "grad_norm"} (device scalars)."""
-    t, noise, drop = draw(batch, cfg, scheduler.config.num_train_timesteps, generator)
+               generator: torch.Generator, mesh: Optional[pmesh.Mesh] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimisation step on this rank's batch; returns {"loss" (the mean
+    over the mesh's dp ranks), "grad_norm"} as device scalars."""
+    t, noise, drop = draw(batch, cfg, scheduler.config.num_train_timesteps, generator, mesh)
     loss = loss_fn(unet, batch, t, noise, drop, cfg, scheduler)
     loss.backward()
-    return {"loss": loss.detach(), "grad_norm": apply_gradients(unet, opt)}
+    loss = loss.detach()
+    if mesh is not None:
+        loss = loss.clone()
+        pmesh.all_reduce_(mesh, [loss], "mean")
+    return {"loss": loss, "grad_norm": apply_gradients(unet, opt, mesh)}

@@ -16,8 +16,17 @@ stage-2 4D-SDS refine): the port of ``animate3d_tpu/systems/animate3d.py``.
 
 A step's random draws (the straight-through masks, the ARAP sample, the
 background inversion) come from the system's ``torch.Generator``, or are
-given to :meth:`Animate3DSystem.step` (the tests feed JAX's). The refine
-stage's guidance (``load_guidance``) is not ported yet: it raises.
+given to :meth:`Animate3DSystem.step` (the tests feed JAX's).
+
+Data parallel (``mesh``, a ``parallel.mesh.Mesh`` with dp > 1; the JAX
+launcher's ``trainer.mesh_dp``): every rank draws the whole step's draws
+from its generator (all seeded alike, so they stay in step) and renders its
+contiguous slice of the step's view·frame items and of the SDS batch (which
+it VAE-encodes; the latents are gathered for the guidance's UNet, which
+couples a video's views and frames); terms that are means over the items
+are normalised by the global batch, terms that do not depend on it (ARAP)
+count on rank 0 only, and the field's gradients are summed over the ranks
+before ``DeformAdam``.
 """
 
 from __future__ import annotations
@@ -40,9 +49,11 @@ from animate3d_tpu_torch.gaussians.deform import DeformationField, DeformConfig
 from animate3d_tpu_torch.gaussians.ply import load_gaussians
 from animate3d_tpu_torch.gaussians.state import GaussianState
 from animate3d_tpu_torch.ops.rasterize import GSCameraArrays
+from animate3d_tpu_torch.parallel import mesh as pmesh
 from animate3d_tpu_torch.rendering.renderer4d import (
     RenderDraws,
     Renderer4DConfig,
+    make_draws,
     render_batch,
 )
 from animate3d_tpu_torch.utils.loss import tv_loss
@@ -159,6 +170,21 @@ class StepDraws(NamedTuple):
     guidance: Optional[Any] = None  # pipelines.guidance.GuidanceDraws
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every dp rank's rows, concatenated; the backward keeps this rank's
+    rows of the gradient. Right where every rank computes the same function
+    of the gathered tensor, so the incoming gradient is the same on all."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rows = pmesh.shard_rows(mesh, x.shape[0] * mesh.dp)
+        return pmesh.all_gather_rows(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rows], None
+
+
 @register("gaussian-splatting-animate3d-system")
 class Animate3DSystem:
     """Holds the frozen gaussian state, the trainable deformation field and
@@ -181,6 +207,7 @@ class Animate3DSystem:
         self.field = DeformationField(cfg.deform, generator=init_gen).to(self.device)
         self.opt = make_deform_optimizer(self.field, cfg)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.mesh: Optional[pmesh.Mesh] = None  # set for data parallel (dp > 1)
         self.global_step = 0
         if cfg.connected_vertices_info_path:
             with open(cfg.connected_vertices_info_path) as f:
@@ -298,25 +325,42 @@ class Animate3DSystem:
                                    sample_num=cfg.loss.arap_sample_num, frame_weights=frame_w,
                                    generator=self.generator)
 
+    def _rows(self, n: int) -> slice:
+        """This rank's items of ``n`` (all of them without a dp mesh)."""
+        return slice(0, n) if self.mesh is None else pmesh.shard_rows(self.mesh, n)
+
     def loss(self, cameras: GSCameraArrays, timestamps: torch.Tensor, gt_rgb: torch.Tensor,
              gt_mask: torch.Tensor, frame_w: torch.Tensor, lambdas: Dict[str, float],
              draws: Optional[StepDraws] = None):
-        """→ (loss, metrics) of one step's items (view-major, F' frames a view)."""
+        """→ (loss, metrics) of one step's items (view-major, F' frames a
+        view). On a dp mesh: this rank's part, whose sum over the ranks is
+        the loss (and the metrics, but for ``psnr``, which :meth:`step`
+        derives again after the sum)."""
         cfg = self.cfg
         draws = draws or StepDraws()
-        n_active = timestamps.shape[0] // cfg.n_view
+        b = timestamps.shape[0]
+        n_active = b // cfg.n_view
         frame_ts = timestamps[:n_active]
         deformed = self.field.deform_frames(self.state, frame_ts, False)
 
+        def frame_index(ts):
+            return torch.argmin(torch.abs(frame_ts[None, :] - ts[:, None]), dim=1)
+
         def deform_fn(ts):  # per item: its frame's deformation
-            fi = torch.argmin(torch.abs(frame_ts[None, :] - ts[:, None]), dim=1)
+            fi = frame_index(ts)
             return tuple(d[fi] for d in deformed)
 
-        out = render_batch(self.state, deform_fn, cameras, timestamps, cfg.renderer,
-                           draws=draws.render,
-                           generator=None if draws.render is not None else self.generator)
+        rd = draws.render
+        if rd is None:
+            rd = make_draws(cfg.renderer, b, self.state.num_points, self.generator, self.device)
+        rows = self._rows(b)
+        frac = (rows.stop - rows.start) / b  # this rank's share of a mean over the items
+        out = render_batch(self.state, deform_fn, cameras.index(rows), timestamps[rows],
+                           cfg.renderer, draws=RenderDraws(rd.st_mask[rows], rd.bg_uniform))
         item_w = frame_w.repeat(cfg.n_view)
         wsum = torch.clamp(item_w.sum(), min=1e-8)
+        item_w = item_w[rows]
+        gt_rgb, gt_mask = gt_rgb[rows], gt_mask[rows]
         bgc = torch.tensor(cfg.renderer.back_ground_color, dtype=torch.float32,
                            device=self.device)
         gt = gt_rgb * gt_mask + bgc * (1.0 - gt_mask)
@@ -329,18 +373,29 @@ class Animate3DSystem:
         metrics = {"loss_rgb": loss_rgb, "loss_mask": loss_mask, "psnr": psnr,
                    "raster_overflow": out.overflow.float()}
         if "lambda_arap" in self.active_terms:
-            loss_arap = self._arap(out.means3d[:n_active], frame_w, draws)
-            loss = loss + lambdas["lambda_arap"] * loss_arap
+            # the first view's trajectory (render_batch's means3d of its
+            # items), which a dp rank may not render
+            static = (frame_ts == -1.0) & (not cfg.renderer.first_frame_trainable)
+            means = torch.where(static[:, None, None], self.state.xyz[None],
+                                deformed[0][frame_index(frame_ts)])
+            # drawn on every rank, so that the generators stay in step
+            loss_arap = self._arap(means, frame_w, draws)
+            if self.mesh is None or self.mesh.is_main:
+                loss = loss + lambdas["lambda_arap"] * loss_arap
+            else:
+                loss_arap = torch.zeros_like(loss_arap)
             metrics["loss_arap"] = loss_arap
         if "lambda_position" in self.active_terms:
             safe_norm = torch.sqrt((out.means3d ** 2).sum(-1) + 1e-12)
-            loss = loss + lambdas["lambda_position"] * safe_norm.mean()
+            loss = loss + lambdas["lambda_position"] * (safe_norm.mean() * frac)
         if "lambda_sparsity" in self.active_terms:
-            loss = loss + lambdas["lambda_sparsity"] * torch.sqrt(out.alpha ** 2 + 0.01).mean()
+            loss = loss + lambdas["lambda_sparsity"] * (
+                torch.sqrt(out.alpha ** 2 + 0.01).mean() * frac)
         if "lambda_scales" in self.active_terms:
-            loss = loss + lambdas["lambda_scales"] * out.scales.sum() / out.scales.shape[0]
+            loss = loss + lambdas["lambda_scales"] * (
+                out.scales.sum() / out.scales.shape[0] * frac)
         if "lambda_tv_loss" in self.active_terms:
-            loss = loss + lambdas["lambda_tv_loss"] * tv_loss(out.rgb)
+            loss = loss + lambdas["lambda_tv_loss"] * (tv_loss(out.rgb) * frac)
         metrics["loss"] = loss
         return loss, metrics
 
@@ -382,8 +437,9 @@ class Animate3DSystem:
         return self.cfg.load_guidance and self.guidance is not None
 
     def _render_guidance_rgb(self, guidance_batch: Dict[str, Any]) -> torch.Tensor:
-        """The SDS batch's renders (B·N·F, s, s, 3) at the guidance's size
-        ``s``, each item deformed at its frame (scales too), no draws."""
+        """This rank's rows (:meth:`_rows`) of the SDS batch's renders
+        (B·N·F, s, s, 3) at the guidance's size ``s``, each item deformed at
+        its frame (scales too), no draws."""
         cfg = self.cfg
         res = self.guidance.cfg.image_size
         rcfg = dataclasses.replace(cfg.renderer, height=res, width=res)
@@ -396,23 +452,33 @@ class Animate3DSystem:
             fi = torch.argmin(torch.abs(frame_ts[None, :] - items[:, None]), dim=1)
             return tuple(d[fi] for d in deformed)
 
-        return render_batch(self.state, deform_fn, guidance_batch["cameras"], ts, rcfg).rgb
+        rows = self._rows(ts.shape[0])
+        return render_batch(self.state, deform_fn, guidance_batch["cameras"].index(rows),
+                            ts[rows], rcfg).rgb
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's rows of ``x`` (``x`` itself without a dp mesh)."""
+        return x if self.mesh is None else _GatherRows.apply(x, self.mesh)
 
     def sds_loss(self, guidance_batch: Dict[str, Any], lambdas: Dict[str, float],
                  draws=None) -> torch.Tensor:
         """The 4D-SDS loss of the SDS batch, differentiable in the field's
-        parameters (render → VAE encode → loss)."""
+        parameters (render → VAE encode → loss). On a dp mesh each rank
+        renders and encodes its rows; the latents are gathered for the
+        UNet, which every rank runs on the whole batch."""
         from animate3d_tpu_torch.pipelines.guidance import GuidanceDraws
 
         g = self.guidance
         draws = draws or GuidanceDraws()
+        n_items = len(guidance_batch["timestamps"])
+        bn = n_items // g.cfg.n_frame
         rgb = self._render_guidance_rgb(guidance_batch)
-        bn = rgb.shape[0] // g.cfg.n_frame
         t_video = draws.t_video if draws.t_video is not None else g._sample_t(
             bn, (lambdas["g_min_step"], lambdas["g_max_step"]), self.generator, self.device)
         cam16 = g.camera16(guidance_batch["c2w"], bn, g.cfg.n_frame).to(self.device)
         return g.loss(rgb, guidance_batch["text_cond"], guidance_batch["text_uncond"], cam16,
-                      guidance_batch["image_embeds"], t_video, draws, self.generator)
+                      guidance_batch["image_embeds"], t_video, draws, self.generator,
+                      shard=(self._rows(n_items), self._gather))
 
     def sds_gradients(self, guidance_batch: Dict[str, Any], lambdas: Dict[str, float],
                       draws=None):
@@ -432,7 +498,7 @@ class Animate3DSystem:
         if self.guidance is None:
             raise ValueError("guidance_preview needs system.load_guidance=true")
         g = guidance_batch
-        rgb = self._render_guidance_rgb(g)
+        rgb = self._gather(self._render_guidance_rgb(g))
         _, mx = self.guidance.min_max_step(self.global_step)
         return self.guidance.preview_from_rgb(
             self.guidance_inputs["vae_decode"], rgb, g["text_cond"], g["text_uncond"],
@@ -453,18 +519,29 @@ class Animate3DSystem:
         loss, metrics = self.loss(cameras, torch.as_tensor(timestamps, device=dev), rgb,
                                   mask.float(), torch.as_tensor(frame_w, device=dev),
                                   lambdas, draws)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        loss_sds = None
         if self.do_guidance:
             if guidance_batch is None:
                 raise ValueError("refine (load_guidance) needs the step's guidance_batch")
             loss_sds = self.sds_loss(guidance_batch, lambdas, draws.guidance)
             loss = loss + lambdas["lambda_sds"] * loss_sds
-            metrics["loss_sds"] = loss_sds
-            metrics["loss"] = loss
         self.opt.zero_grad()
         loss.backward()
+        if self.mesh is not None:  # each rank's loss is a part of the sum
+            params = list(self.opt.params.values())
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            parts = [v for k, v in metrics.items() if k != "psnr"]
+            pmesh.all_reduce_(self.mesh, grads + parts, "sum")
+            for p, g in zip(params, grads):
+                p.grad = g
+            metrics["psnr"] = -10.0 * torch.log10(torch.clamp(metrics["loss_rgb"], min=1e-10))
         self.opt.step()
         self.global_step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        if loss_sds is not None:
+            metrics["loss_sds"] = loss_sds.detach()
+            metrics["loss"] = metrics["loss"] + lambdas["lambda_sds"] * metrics["loss_sds"]
+        return metrics
 
     @torch.no_grad()
     def render(self, cameras: GSCameraArrays, timestamps, renderer_cfg=None):

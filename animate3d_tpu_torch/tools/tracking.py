@@ -18,15 +18,16 @@ back as RGBA with the same numbering. Backends (``segment_video``):
     (``scipy.ndimage``), as in the JAX module;
   * ``"chroma"``: background-distance thresholding, valid only for the
     near-white backgrounds of default renders (host NumPy);
-  * ``"xmem"``: refuses — it needs the released XMem checkpoint, which is
-    not in the repository.
+  * ``"xmem"``: the learned XMem tracker (``tools/xmem_arch.py``) on
+    ``device``, from the checkpoint given by ``weights=`` or
+    ``$XMEM_WEIGHTS`` (none is in the repository); without one it raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -190,10 +191,24 @@ def _propagation_backend(frames: np.ndarray, template_mask: np.ndarray, window: 
 
 
 @register_backend("xmem")
-def _xmem_backend(frames: np.ndarray, template_mask: np.ndarray, **_) -> np.ndarray:
-    raise NotImplementedError(
-        "the xmem backend needs the released XMem checkpoint (XMem-s012.pth), which is not "
-        "in the repository, and the port of its network; use backend='propagation'")
+def _xmem_backend(frames: np.ndarray, template_mask: np.ndarray,
+                  weights: Optional[str] = None, device=None, **kw) -> np.ndarray:
+    """The learned XMem tracker (``tools/xmem_arch.py``, state-dict
+    compatible with the released ``XMem-s012.pth``) on ``device``. The
+    checkpoint comes from ``weights=`` or ``$XMEM_WEIGHTS``; without one
+    this backend raises rather than track with random weights."""
+    from animate3d_tpu_torch.core.device import resolve_device
+    from animate3d_tpu_torch.tools.xmem_arch import load_xmem, xmem_segment_video
+
+    path = weights or os.environ.get("XMEM_WEIGHTS", "")
+    if not path or not os.path.exists(path):
+        raise FileNotFoundError(
+            "xmem backend needs a checkpoint: pass weights= or set $XMEM_WEIGHTS to "
+            "XMem-s012.pth (without one, use backend='propagation')")
+    dev = resolve_device(device)
+    net = load_xmem(path).to(dev)
+    return xmem_segment_video(frames, (template_mask > 0.5).astype(np.float32), net,
+                              device=dev, **kw)
 
 
 def segment_video(frames: np.ndarray, template_mask: np.ndarray,
@@ -232,7 +247,7 @@ def run(frames_dir: str, template_dir: str, output_dir: str, n_views: int = 4,
             template_mask = np.asarray(tm, np.float32) / 255.0
         else:
             template_mask = tmpl[..., 3]
-        kw = {"device": device} if backend == "propagation" else {}
+        kw = {"device": device} if backend in ("propagation", "xmem") else {}
         masks = segment_video(frames, template_mask, backend=backend, **kw)
         for fi in range(n_frames):
             rgba = np.concatenate([(frames[fi] * 255).astype(np.uint8),
@@ -250,7 +265,7 @@ def main(argv=None) -> None:
     parser.add_argument("--n_views", type=int, default=4)
     parser.add_argument("--backend", default="propagation")
     parser.add_argument("--device", default=None,
-                        help="cuda (default) or cpu, for the propagation backend")
+                        help="cuda (default) or cpu, for the propagation and xmem backends")
     args = parser.parse_args(argv)
     run(args.frames_dir, args.template_dir, args.output_dir, args.n_views, args.backend,
         args.device)

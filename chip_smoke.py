@@ -91,7 +91,18 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    configs/animate3d/mesh_animation_frame_16.yaml (3 steps + test, timed
    steps, one loss + backward through H against plain ops), ``--export``
    and ``export_animated_mesh`` to a GLB (vertex count, 16 morph targets);
-   kernel H at the static render's shape against its plain version.
+   kernel H at the static render's shape against its plain version;
+13. the JAX package's last modules: the trainer on configs/training/train.yaml
+   (paths, 3 steps, ``zero_sharded_optimizer=true``) under
+   ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL at world size
+   1; this script's ``--train-rank`` mode is the rank's body), on 48-frame
+   clips of 4 views at 256^2, launches exactly PER_TRAIN_STEP a step, with
+   the dataset's read time for one item; one recon step of phase 7's config
+   with ``--typecheck --gradio`` (contracts at full size; progress file,
+   ``cmd.txt``, ``code_snapshot.zip``, TB events read back); and
+   ``profile_trace`` around one full-width sampling denoise step. Data and
+   sequence parallelism at more than one rank are held by the CPU tests
+   (``tests/test_torch_parallel.py``): this script needs one card.
 
 The summary lines give the step times (refine's too) with kernel B's,
 C's, E's, G's and H's share of the profiled device time, each beside the
@@ -2351,6 +2362,211 @@ def mesh_kernel_rows(ply: str) -> list:
     return rows
 
 
+CLIP_FRAMES = 48  # train.yaml's clips: total_frames 48, 16 sampled at a stride of 3
+
+
+def _clip_workspace(tmp: str) -> str:
+    """Phase 13's manifest: the phase-5 workspace's kind of item (4 views of
+    seeded 256^2 frames, one caption) with 48 frames a view, as frame
+    directories. The H100 machine has no libavcodec, libpng or libjpeg
+    headers, so the native loader (``data/native_loader.py``) does not build
+    there and the dataset reads PNG frames through its PIL fallback, as the
+    JAX package's does without the library; mp4 items and the native decode
+    are held by the CPU tests (``tests/test_torch_loader.py``)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    d = os.path.join(tmp, "clips")
+    views = []
+    for v in range(4):
+        os.makedirs(os.path.join(d, f"view{v}"))
+        for fi in range(CLIP_FRAMES):
+            Image.fromarray(rng.integers(0, 255, (256, 256, 3), dtype=np.uint8)).save(
+                os.path.join(d, f"view{v}", f"{fi:02d}.png"))
+        views.append(f"view{v}")
+    with open(os.path.join(tmp, "manifest_clips.json"), "w") as fh:
+        json.dump([{"videos": views, "caption": "a toy"}], fh)
+    return d
+
+
+def _train_rank(args_path: str, out_path: str) -> int:
+    """Phase 13 (a) inside ``torch.distributed.run``: the trainer CLI with the
+    launch counters zeroed just before and read just after."""
+    from animate3d_tpu_torch.cli.train_mvvdm import main as train_main
+    from animate3d_tpu_torch.ops import _build
+
+    with open(args_path) as fh:
+        args = json.load(fh)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = train_main(args)
+    torch.cuda.synchronize()
+    torch.save({"wall_s": time.perf_counter() - t0, "totals": _build.launch_totals(),
+                "per_shape": dict(_build.LAUNCHES),
+                "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "step_seconds": res["step_seconds"],
+                "losses": [m["loss"] for m in res["metrics"]], "dp": res["dp"],
+                "backend": res["backend"], "sharded": res["optimizer"].sharded,
+                "rank_env": {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}},
+               out_path)
+    return 0
+
+
+def dist_phase(tmp: str, ply: str, frames: str) -> dict:
+    """Phase 13: the paths of the JAX package's last modules.
+
+    (a) the trainer on configs/training/train.yaml under
+    ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL at world
+    size 1), overridden in the paths, 3 steps and ``zero_sharded_optimizer``
+    (plus the phase-5 workspace's gradient checkpointing and log cadence),
+    on 48-frame clips (:func:`_clip_workspace` says why frame directories);
+    launches exactly PER_TRAIN_STEP a step; the dataset's read time for one
+    item (4 views x 16 frames) and one read clip against its source frames;
+    (b) one recon step of phase 7's config with ``--typecheck --gradio``:
+    the contracts pass at full size, and the progress file, ``cmd.txt``,
+    ``code_snapshot.zip`` and the TB event file exist and read back;
+    (c) ``profile_trace`` around one sampling denoise step at full width:
+    the chrome trace exists and holds the kernels' launches."""
+    from animate3d_tpu_torch.cli.launch import main as launch_main
+    from animate3d_tpu_torch.data import native_loader
+    from animate3d_tpu_torch.data.video_dataset import MVideoConfig, MVideoDataset
+    from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
+    from animate3d_tpu_torch.models.factory import build_models
+    from animate3d_tpu_torch.ops import _build
+    from animate3d_tpu_torch.pipelines.mv_sampler import MVSampler, MVSamplerConfig
+    from animate3d_tpu_torch.utils.camera import get_camera
+    from animate3d_tpu_torch.utils.logging import profile_trace
+    from animate3d_tpu_torch.utils.tb_writer import read_events
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    vids = _clip_workspace(tmp)
+    manifest = os.path.join(tmp, "manifest_clips.json")
+    write_s = time.perf_counter() - t0
+    native = native_loader.available()
+    why = native_loader.build_error().strip().splitlines()
+    ds = MVideoDataset(MVideoConfig(manifest_path=manifest, video_root=vids, sample_size=256,
+                                    sample_n_frames=16, total_frames=CLIP_FRAMES), seed=0)
+    ds[0]  # warm the file cache
+    indices = ds._indices()
+    t0 = time.perf_counter()
+    item = ds._item(0, indices)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    src = np.stack([np.asarray(Image.open(os.path.join(vids, "view2", f"{i:02d}.png")),
+                               np.float32) for i in indices]) / 127.5 - 1.0
+    clip_err = float(np.abs(item["pixel_values"][2] - src).max())
+    item_ok = (item["pixel_values"].shape == (4, 16, 256, 256, 3)
+               and bool(np.isfinite(item["pixel_values"]).all()) and clip_err == 0.0)
+    print(f"[dist] clip workspace: 4 views x {CLIP_FRAMES} PNG frames at 256^2 in "
+          f"{write_s:.2f} s; native loader available {native}"
+          + (f" (build: {why[0][:100]} ... {why[-1][:160]})" if why else "")
+          + f"; one item (4 views x 16 frames at 256^2, frames {indices.tolist()}) read in "
+          f"{decode_ms:.2f} ms by the {'native decoder' if native else 'PIL fallback'}; view "
+          f"2's clip against its source frames max|d| {clip_err:.3e} (PNG: exact); card "
+          f"{_smi()}")
+
+    args = ["--config", TRAIN_YAML, f"output_dir={tmp}/out_dist",
+            f"flax_params_dir={tmp}/no_root", f"pretrained_model_path={tmp}/no_tree",
+            f"train_data.manifest_path={manifest}", f"train_data.video_root={vids}",
+            f"max_train_steps={TRAIN_STEPS}", "zero_sharded_optimizer=true",
+            "gradient_checkpointing=true", "log_every_n_steps=1"]
+    args_path, out_path = os.path.join(tmp, "dist_args.json"), os.path.join(tmp, "dist_out.pt")
+    with open(args_path, "w") as fh:
+        json.dump(args, fh)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", os.path.abspath(__file__), "--train-rank", args_path, out_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    launcher_wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines()[-12:]:
+        print(f"[dist-rank] {line}")
+    if proc.returncode != 0:
+        print(f"[dist] torch.distributed.run exited {proc.returncode}")
+        return dict(ok=False, per_shape={})
+    r = torch.load(out_path, weights_only=False)
+    shutil.rmtree(f"{tmp}/out_dist")  # a full checkpoint
+    expected = {k: n * TRAIN_STEPS for k, n in PER_TRAIN_STEP.items()}
+    step_s = float(np.mean(r["step_seconds"][1:]))
+    a_ok = (r["totals"] == expected and r["dp"] == 1 and r["backend"] == "nccl"
+            and not r["sharded"] and len(r["losses"]) == TRAIN_STEPS
+            and all(np.isfinite(r["losses"])) and item_ok)
+    print(f"[dist] (a) train.yaml under torch.distributed.run --nproc_per_node 1 "
+          f"({r['backend']}, world {r['dp']}, env {r['rank_env']}), 48-frame PNG clips, "
+          f"zero_sharded_optimizer=true (sharded {r['sharded']}: a no-op at dp 1): launcher wall "
+          f"{launcher_wall:.2f} s, CLI wall {r['wall_s']:.2f} s, step seconds "
+          + ", ".join(f"{t:.4f}" for t in r["step_seconds"])
+          + f"; peak memory {r['peak_gb']:.2f} GiB; losses "
+          + ", ".join(f"{x:.5f}" for x in r["losses"]) + f"; card {_smi()}")
+    print(f"[dist] (a) launches {r['totals']} (expected {expected}: {PER_TRAIN_STEP} per step)")
+
+    # (b) one recon step with --typecheck --gradio
+    rargs = ["--config", RECON_YAML, "--train", "--typecheck", "--gradio",
+             *_recon_args(tmp, ply, frames, RECON_RES, RECON_EVAL), "name=typecheck",
+             "trainer.max_steps=1"]
+    t0 = time.perf_counter()
+    res = launch_main(rargs)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    from animate3d_tpu_torch.core.typecheck import disable_typecheck
+
+    disable_typecheck()
+    trial = res["trial_dir"]
+    import zipfile
+
+    with open(os.path.join(trial, "progress")) as fh:
+        progress = fh.read()
+    with open(os.path.join(trial, "cmd.txt")) as fh:
+        cmd_txt = fh.read()
+    with zipfile.ZipFile(os.path.join(trial, "code_snapshot.zip")) as z:
+        n_src = len(z.namelist())
+        has_cu = "animate3d_tpu_torch/csrc/flash_fwd.cu" in z.namelist()
+    tb = [os.path.join(trial, "tb", n) for n in os.listdir(os.path.join(trial, "tb"))]
+    events = read_events(tb[0]) if tb else []
+    tags = sorted({t for _, t, _ in events})
+    b_ok = (progress == "Rendering video ..." and "--typecheck --gradio" in cmd_txt
+            and n_src > 50 and has_cu and "loss" in tags
+            and np.isfinite([m["loss"] for m in res["metrics"]]).all())
+    print(f"[dist] (b) recon CLI --typecheck --gradio, 1 step at {RECON_RES}^2 + four-view "
+          f"test: wall {b_wall:.2f} s; contracts passed; progress {progress!r}; cmd.txt "
+          f"{cmd_txt.strip()[:60]!r}...; code_snapshot.zip {n_src} files (.cu {has_cu}); TB "
+          f"events {len(events)} ({','.join(tags)})")
+
+    # (c) profile_trace around one sampling denoise step
+    unet, *_ = build_models("full", 4, "cuda", seed=0, clip=False)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scfg = MVSamplerConfig(num_inference_steps=25, num_views=4, num_frames=16, height=256,
+                           width=256, freeinit_enabled=False)
+    sampler = MVSampler(unet, scfg, DDIMScheduler(SchedulerConfig(), device="cuda"))
+    lat = torch.randn((4, 16, 32, 32, 4), generator=gen, device="cuda")
+    ctx = 0.5 * torch.randn((8, 77, 768), generator=gen, device="cuda")
+    img = torch.randn((8, 1024), generator=gen, device="cuda")
+    cam = torch.as_tensor(get_camera(4), device="cuda")
+    ts = sampler.active_timesteps()[:1]
+    with torch.inference_mode():
+        sampler.denoise(lat, lat[:, :1], ctx, cam, img, ts)  # warm-up
+        _build.reset_launches()
+        with profile_trace(os.path.join(tmp, "trace")) as prof:
+            sampler.denoise(lat, lat[:, :1], ctx, cam, img, ts)
+    c_totals = _build.launch_totals()
+    with open(prof.trace_path) as fh:
+        trace = json.load(fh)
+    names = [e.get("name", "") for e in trace.get("traceEvents", [])]
+    n_kernel = sum("flash_fwd" in n or "packed_attn" in n or "geglu" in n for n in names)
+    c_ok = (os.path.getsize(prof.trace_path) > 0 and n_kernel > 0
+            and all(c_totals[k] == n for k, n in PER_FORWARD.items()))
+    print(f"[dist] (c) profile_trace around one denoise step (CFG pair, full width 256^2): "
+          f"{os.path.basename(prof.trace_path)} {os.path.getsize(prof.trace_path) / 2 ** 20:.2f} "
+          f"MiB, {len(names)} events, {n_kernel} of kernels A-C; denoise step "
+          f"{sampler.step_seconds[-1]:.4f} s under the profiler; launches {c_totals}")
+    del unet, sampler
+    torch.cuda.empty_cache()
+    ok = a_ok and b_ok and c_ok
+    print(f"[dist] (a) {a_ok}, (b) {b_ok}, (c) {c_ok}")
+    return dict(ok=ok, per_shape=r["per_shape"], step_s=step_s, peak_gb=r["peak_gb"],
+                decode_ms=decode_ms, launcher_s=launcher_wall, b_wall_s=b_wall)
+
+
 def _fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
@@ -2476,6 +2692,12 @@ def main() -> int:
         checked |= {key for r in m_rows for key in r["keys"]}
         if unchecked("mesh", mesh):
             return 1
+        dist = dist_phase(tmp, ply, frames)
+        if not dist["ok"]:
+            return _fail("phase 13 (the trainer under torch.distributed.run, --typecheck "
+                         "--gradio, profile_trace) failed its checks")
+        if unchecked("dist-train", dist):
+            return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
     print(f"[summary] seconds per denoise step at 512x512: {e2e512['step_s']:.4f}; peak "
@@ -2530,6 +2752,10 @@ def main() -> int:
           f"tracking {mesh['track_s']:.2f} s (coverage {mesh['cover']:.4f}); recon CLI "
           f"({RECON_STEPS} steps + four-view test) {mesh['recon_wall_s']:.2f} s; the chain's "
           f"wall {mesh['wall_s']:.2f} s; card {env['smi']}")
+    print(f"[summary] phase 13: seconds per train step under torch.distributed.run (NCCL, "
+          f"world 1, train.yaml on 48-frame clips, zero_sharded_optimizer): "
+          f"{dist['step_s']:.4f}; peak memory {dist['peak_gb']:.2f} GiB; one item's read (4 "
+          f"views x 16 frames at 256^2) {dist['decode_ms']:.2f} ms; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
     kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",
@@ -2546,4 +2772,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"]:
+        sys.exit(_train_rank(*sys.argv[2:4]))
     sys.exit(main())

@@ -187,12 +187,37 @@ def test_chroma_fails_where_propagation_succeeds():
     assert _iou(TTR.segment_video(frames, gts[0], backend="chroma")[-1], gts[-1]) < 0.5
 
 
-def test_xmem_backend_refuses():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TTR.segment_video(np.zeros((2, 32, 32, 3), np.float32), np.zeros((32, 32)),
-                          backend="xmem")
+def test_xmem_backend_refuses(monkeypatch):
+    """Without a checkpoint (no ``weights=``, no ``$XMEM_WEIGHTS``) the xmem
+    backend raises in both packages rather than track with random weights."""
+    monkeypatch.delenv("XMEM_WEIGHTS", raising=False)
+    for seg in (TTR.segment_video, JTR.segment_video):
+        with pytest.raises(FileNotFoundError, match="checkpoint"):
+            seg(np.zeros((2, 32, 32, 3), np.float32), np.zeros((32, 32)), backend="xmem")
     with pytest.raises(KeyError):
         TTR.segment_video(np.zeros((2, 8, 8, 3), np.float32), np.zeros((8, 8)), backend="sam")
+
+
+def test_xmem_segment_video_matches_jax(tmp_path, monkeypatch):
+    """A seeded XMem state dict (a narrow value / hidden width) written by the
+    test, loaded by each package's xmem backend, one from ``weights=`` and
+    one from ``$XMEM_WEIGHTS``: the same masks on the same frames."""
+    from animate3d_tpu.tools.xmem_arch import XMemNet
+
+    torch.manual_seed(0)
+    path = tmp_path / "xmem.pth"
+    torch.save(XMemNet(key_dim=16, value_dim=32, hidden_dim=8).state_dict(), path)
+    rng = np.random.default_rng(1)
+    frames = rng.uniform(size=(6, 40, 40, 3)).astype(np.float32)
+    tmpl = np.zeros((40, 40), np.float32)
+    tmpl[8:28, 10:30] = 1.0
+    port = TTR.segment_video(frames, tmpl, backend="xmem", weights=str(path), device="cpu",
+                             mem_every=2, max_memory=3)
+    monkeypatch.setenv("XMEM_WEIGHTS", str(path))
+    ref = JTR.segment_video(frames, tmpl, backend="xmem", mem_every=2, max_memory=3)
+    assert port.shape == (6, 40, 40)
+    np.testing.assert_array_equal(port, ref)
+    np.testing.assert_array_equal(port[0], tmpl)
 
 
 def _glb(path):

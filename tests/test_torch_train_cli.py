@@ -123,9 +123,9 @@ def test_dataset_mp4_raises_naming_the_native_decoder(tmp_path):
     ds = MVideoDataset(MVideoConfig(manifest_path=str(tmp_path / "manifest.json"),
                                     video_root=str(tmp_path), sample_size=8,
                                     sample_n_frames=2, total_frames=2))
-    with pytest.raises(NotImplementedError, match="native"):
+    with pytest.raises(RuntimeError, match="native"):
         ds[0]
-    with Prefetcher(ds.iterate(), depth=1) as prefetch, pytest.raises(NotImplementedError):
+    with Prefetcher(ds.iterate(), depth=1) as prefetch, pytest.raises(RuntimeError):
         next(prefetch)
 
 
@@ -145,7 +145,7 @@ def test_checkpoint_keep_and_latest(tmp_path):
     assert set(extract_motion_modules(state)) == set(list(state)[:2])
 
 
-@pytest.mark.parametrize("override", ["use_wandb=true", "zero_sharded_optimizer=true"])
+@pytest.mark.parametrize("override", ["use_wandb=true"])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, override):
     from animate3d_tpu_torch.cli.train_mvvdm import main
 
