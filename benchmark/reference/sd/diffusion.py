@@ -1,0 +1,125 @@
+"""DDIM schedule and FreeInit (port of animate3d_tpu/models/diffusion.py).
+
+diffusers DDIMScheduler with the reference config (1000 train steps, linear
+betas 0.00085 → 0.012, steps_offset 1, no clipping) as table lookups, and
+the FreeInit butterworth low-pass frequency mix via ``torch.fft``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "linear"  # linear | scaled_linear
+    steps_offset: int = 1
+    clip_sample: bool = False
+    set_alpha_to_one: bool = True
+    prediction_type: str = "epsilon"
+
+
+class DDIMScheduler:
+    """Precomputed f32 tables on ``device`` + the static config."""
+
+    def __init__(self, config: SchedulerConfig = SchedulerConfig(), device=None):
+        t = config.num_train_timesteps
+        if config.beta_schedule == "linear":
+            betas = np.linspace(config.beta_start, config.beta_end, t, dtype=np.float64)
+        elif config.beta_schedule == "scaled_linear":
+            betas = np.linspace(config.beta_start ** 0.5, config.beta_end ** 0.5, t,
+                                dtype=np.float64) ** 2
+        else:
+            raise ValueError(config.beta_schedule)
+        alphas_cumprod = np.cumprod(1.0 - betas)
+        final = 1.0 if config.set_alpha_to_one else alphas_cumprod[0]
+        self.config = config
+        self.alphas_cumprod = torch.as_tensor(alphas_cumprod, dtype=torch.float32,
+                                              device=device)
+        self.final_alpha_cumprod = torch.as_tensor(final, dtype=torch.float32,
+                                                   device=device)
+
+    def timesteps(self, num_inference_steps: int) -> torch.Tensor:
+        """Descending int64 timesteps ('leading' spacing + steps_offset)."""
+        step_ratio = self.config.num_train_timesteps // num_inference_steps
+        ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1].copy()
+        return torch.as_tensor(ts + self.config.steps_offset, dtype=torch.int64,
+                               device=self.alphas_cumprod.device)
+
+    def _alpha(self, t) -> torch.Tensor:
+        t = torch.as_tensor(t, device=self.alphas_cumprod.device)
+        return self.alphas_cumprod[t.clamp(min=0)]
+
+    def pred_original(self, sample: torch.Tensor, eps: torch.Tensor, t) -> torch.Tensor:
+        """x0 prediction from epsilon."""
+        a_t = self._alpha(t)
+        if a_t.dim():
+            a_t = a_t.reshape((-1,) + (1,) * (sample.dim() - 1))
+        return (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+
+    def step(self, eps: torch.Tensor, t, sample: torch.Tensor,
+             num_inference_steps: int, eta: float = 0.0,
+             noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One DDIM step. Returns (prev_sample, pred_x0)."""
+        cfg = self.config
+        t = torch.as_tensor(t, device=self.alphas_cumprod.device)
+        prev_t = t - cfg.num_train_timesteps // num_inference_steps
+        a_t = self._alpha(t)
+        a_prev = torch.where(prev_t >= 0, self._alpha(prev_t), self.final_alpha_cumprod)
+        x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+        if cfg.clip_sample:
+            x0 = x0.clamp(-1.0, 1.0)
+        if eta > 0.0:
+            if noise is None:
+                raise ValueError("eta > 0 needs noise")
+            var = (1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev)
+            sigma = eta * torch.sqrt(var)
+            dir_coeff = torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0))
+            prev = torch.sqrt(a_prev) * x0 + dir_coeff * eps + sigma * noise
+        else:
+            prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+        return prev, x0
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """Forward diffusion q(x_t | x_0)."""
+        a_t = self._alpha(t)
+        while a_t.dim() < x0.dim():
+            a_t = a_t[..., None]
+        return torch.sqrt(a_t) * x0 + torch.sqrt(1.0 - a_t) * noise
+
+
+def _butterworth_lowpass_3d(shape: Tuple[int, int, int], d_s: float = 0.25,
+                            d_t: float = 0.25, order: int = 4) -> np.ndarray:
+    """(F, H, W) low-pass mask over centred normalised frequencies."""
+    f, h, w = shape
+    if d_s == 0 or d_t == 0:
+        return np.zeros(shape, np.float32)
+    ts = ((np.arange(f) / f) * 2 - 1)[:, None, None] / d_t
+    hs = ((np.arange(h) / h) * 2 - 1)[None, :, None] / d_s
+    ws = ((np.arange(w) / w) * 2 - 1)[None, None, :] / d_s
+    d2 = ts ** 2 + hs ** 2 + ws ** 2
+    return (1.0 / (1.0 + d2 ** order)).astype(np.float32)
+
+
+def freeinit_blend(diffused_latents: torch.Tensor, fresh_noise: torch.Tensor,
+                   filter_order: int = 4, cutoff_spatial: float = 0.25,
+                   cutoff_temporal: float = 0.25) -> torch.Tensor:
+    """Low frequencies of the diffused latents + high frequencies of fresh
+    noise, over the (F, h, w) axes of (B, F, h, w, C) latents."""
+    b, f, h, w, c = diffused_latents.shape
+    lpf = torch.as_tensor(_butterworth_lowpass_3d((f, h, w), cutoff_spatial,
+                                                  cutoff_temporal, filter_order),
+                          device=diffused_latents.device)
+    lpf = torch.fft.ifftshift(lpf)[None, :, :, :, None]  # mask built centred
+    dims = (1, 2, 3)
+    x_freq = torch.fft.fftn(diffused_latents.to(torch.complex64), dim=dims)
+    n_freq = torch.fft.fftn(fresh_noise.to(torch.complex64), dim=dims)
+    mixed = x_freq * lpf + n_freq * (1.0 - lpf)
+    return torch.fft.ifftn(mixed, dim=dims).real.to(diffused_latents.dtype)
