@@ -39,7 +39,8 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {"gif": path, "latents": final latents,
     "text_cond", "image_embeds", "loaded" (components read from files),
     "step_seconds": per-denoise-step wall times, "run_seconds": conditioning,
-    sampling and decode}."""
+    sampling and decode, "profile": the profiler of ``--profile_dir`` or
+    None}."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default=None, help="inference yaml")
     parser.add_argument("--prompt", default="")
@@ -65,6 +66,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=8673)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu is for tests")
+    parser.add_argument("--profile_dir", default=None,
+                        help="trace the request (conditioning, sampling, decode) with "
+                             "torch.profiler: a chrome trace and summary.json here")
     parser.add_argument("--mesh_sp", type=int, default=0,
                         help="shard the long self-attention sequences over N ranks "
                              "(a K/V ring; run under torchrun with N processes)")
@@ -90,6 +94,8 @@ def main(argv=None) -> dict:
         decode_video,
         encode_conditioning_images,
     )
+    from animate3d_tpu_torch.utils import trace
+    from animate3d_tpu_torch.utils.logging import profile_trace
     from animate3d_tpu_torch.utils.saving import export_to_gif_mv
 
     cfg_yaml = {}
@@ -125,53 +131,58 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize(dev)
     t_run = time.perf_counter()
 
-    # 3. text + image conditioning
-    ucfg = unet.config
-    if args.prompt_embeds_path:
-        z = np.load(args.prompt_embeds_path)
-        text_cond = torch.as_tensor(np.tile(z["cond"][None], (args.N, 1, 1)), device=dev)
-        text_uncond = torch.as_tensor(np.tile(z["uncond"][None], (args.N, 1, 1)), device=dev)
-    elif text_model is not None and has_tokenizer(args.flax_params):
-        text_cond, text_uncond = encode_text(args.prompt, "", args.N, text_model,
-                                             args.flax_params)
-    else:
-        print("[prompt] WARNING: no text encoder — zero text embeddings (smoke mode)")
-        text_cond = torch.zeros((args.N, 77, ucfg.cross_attention_dim), device=dev)
-        text_uncond = text_cond
-    if vision_model is not None:
-        with torch.no_grad():
-            image_embeds = encode_ip_adapter_images(vision_model, cond_images).float()
-    else:
-        print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
-        image_embeds = torch.zeros((args.N, ucfg.image_embed_dim), device=dev)
+    # 3.-5. the request (traced into --profile_dir when it is set)
+    with profile_trace(args.profile_dir) as prof:
+        # 3. text + image conditioning
+        ucfg = unet.config
+        if args.prompt_embeds_path:
+            z = np.load(args.prompt_embeds_path)
+            text_cond = torch.as_tensor(np.tile(z["cond"][None], (args.N, 1, 1)),
+                                        device=dev)
+            text_uncond = torch.as_tensor(np.tile(z["uncond"][None], (args.N, 1, 1)),
+                                          device=dev)
+        elif text_model is not None and has_tokenizer(args.flax_params):
+            text_cond, text_uncond = encode_text(args.prompt, "", args.N, text_model,
+                                                 args.flax_params)
+        else:
+            print("[prompt] WARNING: no text encoder — zero text embeddings (smoke mode)")
+            text_cond = torch.zeros((args.N, 77, ucfg.cross_attention_dim), device=dev)
+            text_uncond = text_cond
+        if vision_model is not None:
+            with torch.no_grad():
+                image_embeds = encode_ip_adapter_images(vision_model, cond_images).float()
+        else:
+            print("[ip] WARNING: no image encoder — zero image embeds (smoke mode)")
+            image_embeds = torch.zeros((args.N, ucfg.image_embed_dim), device=dev)
 
-    # 4. sample
-    sched_kwargs = cfg_yaml.get("noise_scheduler_kwargs", {})
-    scheduler = DDIMScheduler(SchedulerConfig(
-        **{k: v for k, v in sched_kwargs.items()
-           if k in SchedulerConfig.__dataclass_fields__}), device=dev)
-    scfg = MVSamplerConfig(
-        num_inference_steps=cfg_yaml.get("steps", args.steps),
-        guidance_scale=cfg_yaml.get("guidance_scale", args.guidance_scale),
-        num_views=args.N, num_frames=args.L, height=args.H, width=args.W,
-        vae_scale_factor=2 ** (len(vae.config.block_out_channels) - 1),
-        freeinit_enabled=cfg_yaml.get("freeinit_enabled", True),
-        freeinit_num_iters=cfg_yaml.get("freeinit_num_iters", args.freeinit_iters),
-        i2v_cond_time_zero=cfg_yaml.get("i2v_cond_time_zero", False),
-        **_similarity_init(cfg_yaml),
-    )
-    sampler = MVSampler(unet, scfg, scheduler)
-    ffl = encode_conditioning_images(vae, cond_images * 2.0 - 1.0)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    try:
-        with sp_ring(mesh) if mesh is not None else contextlib.nullcontext():
-            latents = sampler.sample(ffl, text_cond, text_uncond, image_embeds, generator=gen)
-    finally:
-        pmesh.leave(joined)
-    video = decode_video(vae, latents)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    run_seconds = time.perf_counter() - t_run
+        # 4. sample
+        sched_kwargs = cfg_yaml.get("noise_scheduler_kwargs", {})
+        scheduler = DDIMScheduler(SchedulerConfig(
+            **{k: v for k, v in sched_kwargs.items()
+               if k in SchedulerConfig.__dataclass_fields__}), device=dev)
+        scfg = MVSamplerConfig(
+            num_inference_steps=cfg_yaml.get("steps", args.steps),
+            guidance_scale=cfg_yaml.get("guidance_scale", args.guidance_scale),
+            num_views=args.N, num_frames=args.L, height=args.H, width=args.W,
+            vae_scale_factor=2 ** (len(vae.config.block_out_channels) - 1),
+            freeinit_enabled=cfg_yaml.get("freeinit_enabled", True),
+            freeinit_num_iters=cfg_yaml.get("freeinit_num_iters", args.freeinit_iters),
+            i2v_cond_time_zero=cfg_yaml.get("i2v_cond_time_zero", False),
+            **_similarity_init(cfg_yaml),
+        )
+        sampler = MVSampler(unet, scfg, scheduler)
+        ffl = encode_conditioning_images(vae, cond_images * 2.0 - 1.0)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        try:
+            with sp_ring(mesh) if mesh is not None else contextlib.nullcontext():
+                latents = sampler.sample(ffl, text_cond, text_uncond, image_embeds,
+                                         generator=gen)
+        finally:
+            pmesh.leave(joined)
+        video = decode_video(vae, latents)
+        if dev.type == "cuda":
+            trace.synchronize(dev)
+        run_seconds = time.perf_counter() - t_run
 
     save_name = "-".join(args.prompt.replace("/", "").split(" ")[:10]) or "sample"
     out = os.path.join(args.output_dir, args.save_name, f"0-{save_name}.gif")
@@ -180,7 +191,7 @@ def main(argv=None) -> dict:
         print(f"saved {out}")
     return {"gif": out, "latents": latents, "text_cond": text_cond, "image_embeds": image_embeds,
             "loaded": loaded, "step_seconds": list(sampler.step_seconds),
-            "run_seconds": run_seconds}
+            "run_seconds": run_seconds, "profile": prof}
 
 
 def _similarity_init(cfg_yaml: dict) -> dict:

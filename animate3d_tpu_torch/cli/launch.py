@@ -136,15 +136,16 @@ def _validation_render(cfg, system, step: int) -> None:
                      os.path.join(cfg.trial_dir, "save", "val", f"it{step}.gif"))
 
 
-def run_train(cfg, system, mesh=None, progress=None) -> dict:
+def run_train(cfg, system, mesh=None, progress=None, profile_dir=None) -> dict:
     """Optimise the field; on a dp ``mesh`` (dp > 1) every rank steps and
-    rank 0 writes."""
+    rank 0 writes. With ``profile_dir``, steps ``PROFILE_STEPS`` are traced
+    there (``utils/logging.py::profile_trace``)."""
     from animate3d_tpu_torch.core.checkpoint import save_checkpoint
     from animate3d_tpu_torch.core.registry import find
     from animate3d_tpu_torch.data.cameras import gs_cameras_from_batch
     import animate3d_tpu_torch.data.multi_image  # noqa: F401 — registers the datamodule
     from animate3d_tpu_torch.parallel import mesh as pmesh
-    from animate3d_tpu_torch.utils.logging import MetricsLogger
+    from animate3d_tpu_torch.utils.logging import MetricsLogger, StepProfile
 
     main_rank = mesh is None or mesh.is_main
     if mesh is not None:
@@ -188,33 +189,36 @@ def run_train(cfg, system, mesh=None, progress=None) -> dict:
         pending.clear()
         t0 = time.perf_counter()
 
-    for step in range(max_steps):
-        if progress is not None and step % log_every == 0:
-            progress.train_step(step, max_steps)
-        guidance_batch = None
-        if system.do_guidance and dataset.random_sampler is not None:
-            guidance_batch = _guidance_batch(system, dataset.batch(step)["random_camera"])
-        pending.append((step, system.step(batch, guidance_batch=guidance_batch)))
-        if step % log_every == 0 or step + 1 == max_steps:
-            flush()
-        if geval_every and guidance_batch is not None and (step + 1) % geval_every == 0:
-            from animate3d_tpu_torch.utils.saving import Saver
+    with StepProfile(profile_dir) as profile:
+        for step in range(max_steps):
+            profile.before(step)
+            if progress is not None and step % log_every == 0:
+                progress.train_step(step, max_steps)
+            guidance_batch = None
+            if system.do_guidance and dataset.random_sampler is not None:
+                guidance_batch = _guidance_batch(system, dataset.batch(step)["random_camera"])
+            pending.append((step, system.step(batch, guidance_batch=guidance_batch)))
+            profile.after(step)
+            if step % log_every == 0 or step + 1 == max_steps:
+                flush()
+            if geval_every and guidance_batch is not None and (step + 1) % geval_every == 0:
+                from animate3d_tpu_torch.utils.saving import Saver
 
-            # every rank previews, so that the generators stay in step
-            imgs = system.guidance_preview(
-                guidance_batch, num_steps=int(cfg.trainer.get("guidance_eval_steps", 25)))
-            if main_rank:
-                Saver(os.path.join(cfg.trial_dir, "save")).gif_mv(
-                    f"guidance_eval/it{step + 1}.gif", imgs.cpu().numpy())
-                print(f"[guidance_eval] wrote teacher preview at step {step + 1}")
-        if not main_rank:
-            continue
-        if val_every and (step + 1) % val_every == 0 and step + 1 < max_steps:
-            _validation_render(cfg, system, step + 1)
-        if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
-            save_checkpoint(ckpt_dir, step + 1, {"params": system.field.state_dict(),
-                                                 "opt_state": system.opt.state_dict(),
-                                                 "step": step + 1})
+                # every rank previews, so that the generators stay in step
+                imgs = system.guidance_preview(
+                    guidance_batch, num_steps=int(cfg.trainer.get("guidance_eval_steps", 25)))
+                if main_rank:
+                    Saver(os.path.join(cfg.trial_dir, "save")).gif_mv(
+                        f"guidance_eval/it{step + 1}.gif", imgs.cpu().numpy())
+                    print(f"[guidance_eval] wrote teacher preview at step {step + 1}")
+            if not main_rank:
+                continue
+            if val_every and (step + 1) % val_every == 0 and step + 1 < max_steps:
+                _validation_render(cfg, system, step + 1)
+            if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
+                save_checkpoint(ckpt_dir, step + 1, {"params": system.field.state_dict(),
+                                                     "opt_state": system.opt.state_dict(),
+                                                     "step": step + 1})
     flush()
     if progress is not None:
         progress.train_step(max_steps, max_steps)
@@ -359,6 +363,9 @@ def main(argv=None) -> dict:
                         help="check tensor shapes and dtypes at the 4D stage's boundaries")
     parser.add_argument("--gradio", action="store_true",
                         help="UI mode: one-line progress in <trial_dir>/progress")
+    parser.add_argument("--profile_dir", default=None,
+                        help="--train: trace steps 10-19 with torch.profiler, a chrome "
+                             "trace and summary.json here")
     parser.add_argument("extras", nargs="*", help="dotted config overrides")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
@@ -395,7 +402,7 @@ def main(argv=None) -> dict:
             return res
         if args.train:
             load_system_weights(cfg, system)
-            res.update(run_train(cfg, system, mesh, progress))
+            res.update(run_train(cfg, system, mesh, progress, args.profile_dir))
         if args.export:
             cfg.system["save_gaussian_trajectory"] = True
         if main_rank:

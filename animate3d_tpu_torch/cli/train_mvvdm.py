@@ -83,6 +83,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--config", required=True)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu is for tests")
+    parser.add_argument("--profile_dir", default=None,
+                        help="trace the loop's steps 10-19 with torch.profiler: a chrome "
+                             "trace and summary.json here")
     parser.add_argument("extras", nargs="*", help="dotted overrides key.path=value")
     args = parser.parse_args(argv)
 
@@ -108,7 +111,8 @@ def main(argv=None) -> dict:
         make_optimizer,
         train_step,
     )
-    from animate3d_tpu_torch.utils.logging import MetricsLogger
+    from animate3d_tpu_torch.utils import trace
+    from animate3d_tpu_torch.utils.logging import MetricsLogger, StepProfile
     from animate3d_tpu_torch.utils.saving import save_videos_grid
 
     with open(args.config) as fh:
@@ -306,8 +310,10 @@ def main(argv=None) -> dict:
                         {"params": extract_motion_modules(trained)}, keep=2)
 
     metrics_all, step_seconds, conditioning = [], [], None
+    profile = StepProfile(args.profile_dir)
     try:
         for step in range(start_step, max_steps):
+            profile.before(step - start_step)
             t0 = time.perf_counter()
             raw = next(it)
             b, n, f = raw["pixel_values"].shape[:3]
@@ -329,7 +335,7 @@ def main(argv=None) -> dict:
                                 "image_embeds": image_embeds}
             metrics = train_step(unet, opt, batch, tcfg, scheduler, gen, mesh)
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                trace.synchronize(dev)
             step_seconds.append(time.perf_counter() - t0)
             metrics = {k: float(v) for k, v in metrics.items()}
             metrics_all.append(metrics)
@@ -343,7 +349,9 @@ def main(argv=None) -> dict:
                 run_validation(step + 1, raw)
             if (step + 1) % ckpt_every == 0 or step + 1 == max_steps:
                 save(step + 1)
+            profile.after(step - start_step)
     finally:
+        profile.close()
         if prefetch is not None:
             prefetch.close()
         pmesh.leave(joined)

@@ -24,6 +24,7 @@ import numpy as np
 from PIL import Image
 
 from animate3d_tpu_torch.data import native_loader
+from animate3d_tpu_torch.utils import trace
 from animate3d_tpu_torch.utils.camera import get_camera
 
 _IMAGE_EXT = (".png", ".jpg", ".jpeg")
@@ -147,7 +148,9 @@ class Prefetcher:
     the next batches while the device runs the current step. ``depth``
     bounds the queued batches; an error in the reader is raised on the
     consumer side. :meth:`close` (or leaving a ``with`` block) stops the
-    reader thread."""
+    reader thread. The consumer's wait for a batch is the span
+    ``prefetcher.wait``, the reader's read of one ``prefetcher.read``
+    (``utils/trace.py``)."""
 
     def __init__(self, it, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
@@ -157,8 +160,10 @@ class Prefetcher:
 
         def worker():
             try:
-                for item in it:
-                    if self._stop.is_set():
+                while True:
+                    with trace.span("prefetcher.read"):
+                        item = next(it, self._sentinel)
+                    if item is self._sentinel or self._stop.is_set():
                         return
                     self._q.put(item)
             except BaseException as e:  # re-raised by __next__
@@ -173,7 +178,8 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with trace.span("prefetcher.wait"):
+            item = self._q.get()
         if item is self._sentinel:
             if self._err is not None:
                 raise self._err

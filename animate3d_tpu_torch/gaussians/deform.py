@@ -30,6 +30,7 @@ from animate3d_tpu_torch.gaussians.kplanes import (
     plane_shapes,
 )
 from animate3d_tpu_torch.gaussians.state import GaussianState
+from animate3d_tpu_torch.utils import trace
 from animate3d_tpu_torch.utils.rotation import euler_to_matrix, matrix_to_quat, quat_to_matrix
 
 
@@ -128,6 +129,7 @@ class DeformationField(nn.Module):
         feats = interpolate_ms_features(pts.reshape(f * n, 4), self.grids).reshape(f, n, -1)
         return self._displace(state.xyz, state.rotation, state.scaling, feats, deform_scales)
 
+    @trace.spanned("deform.frames")
     def deform_frames(self, state: GaussianState, ts: torch.Tensor,
                       deform_scales: bool = False):
         """All frames: (means (F, N, 3), rotations (F, N, 4), scales (F, N, 3))."""

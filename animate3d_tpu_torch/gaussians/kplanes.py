@@ -17,6 +17,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from animate3d_tpu_torch.utils import trace
+
 COO_COMBS: Tuple[Tuple[int, int], ...] = tuple(itertools.combinations(range(4), 2))
 
 
@@ -36,6 +38,7 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
 
 
+@trace.spanned("kplanes.sample")
 def interpolate_ms_features(pts: torch.Tensor,
                             grids: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
     """pts (N, 4) in [-1, 1] → (N, C · n_scales)."""
@@ -61,6 +64,7 @@ def axis_weights(coord: torch.Tensor, reso: int) -> torch.Tensor:
             + torch.where(cells == x1[:, None], fx, zero))
 
 
+@trace.spanned("kplanes.sample")
 def interpolate_ms_features_frames(xyz: torch.Tensor, ts: torch.Tensor,
                                    grids: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
     """(F, N, C · n_scales) features of all N points at all F frames: the

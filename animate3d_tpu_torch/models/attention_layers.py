@@ -28,6 +28,7 @@ from animate3d_tpu_torch.models.embeddings import (
 from animate3d_tpu_torch.models.layers import Linear
 from animate3d_tpu_torch.ops.attention import multi_head_attention
 from animate3d_tpu_torch.ops.geglu import geglu_ff
+from animate3d_tpu_torch.utils.trace import cast
 
 
 def _proj(in_dim: int, out_dim: int) -> Linear:
@@ -268,5 +269,5 @@ class FeedForwardGEGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
-        return geglu_ff(x, *(t.to(x.dtype) for t in (proj.weight, proj.bias, out.weight,
-                                                      out.bias)))
+        return geglu_ff(x, *(cast(t, x.dtype) for t in (proj.weight, proj.bias, out.weight,
+                                                         out.bias)))

@@ -28,6 +28,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from animate3d_tpu_torch.utils import trace
+
 
 @dataclass(frozen=True)
 class CLIPTextConfig:
@@ -158,6 +160,7 @@ class CLIPTextModel(nn.Module):
         self.config = config
         self.text_model = _TextTransformer(config)
 
+    @trace.spanned("clip.text_tower")
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, S) token ids → (B, S, hidden) last hidden state."""
         tm = self.text_model
@@ -195,6 +198,7 @@ class CLIPVisionModelWithProjection(nn.Module):
         self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim,
                                            bias=False)
 
+    @trace.spanned("clip.vision_tower")
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalised images → (B, projection_dim) image embeds."""
         vm = self.vision_model

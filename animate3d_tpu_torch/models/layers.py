@@ -19,7 +19,9 @@ rule per layer family, from its sources (``linen/linear.py``,
 These subclasses keep torch's names and state dicts and follow that rule
 with the compute dtype taken from the input: where the stored dtype is the
 input's, each is the torch layer itself; elsewhere the weights are cast at
-use (no second copy is kept) and the norms run in f32.
+use (no second copy is kept; each cast that launches counts under
+``utils/trace``'s ``weight_cast`` while a profiler records) and the norms
+run in f32.
 """
 
 from __future__ import annotations
@@ -28,32 +30,30 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-
-def _as(t, dtype):
-    return None if t is None else t.to(dtype)
+from animate3d_tpu_torch.utils.trace import cast
 
 
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), _as(self.bias, x.dtype))
+        return F.linear(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), _as(self.bias, x.dtype))
+        return self._conv_forward(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
 class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype == x.dtype:
             return super().forward(x)
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        return F.group_norm(x.float(), self.num_groups, cast(self.weight, torch.float32),
+                            cast(self.bias, torch.float32), self.eps).to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype == x.dtype:
             return super().forward(x)
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        return F.layer_norm(x.float(), self.normalized_shape, cast(self.weight, torch.float32),
+                            cast(self.bias, torch.float32), self.eps).to(x.dtype)

@@ -32,6 +32,7 @@ from animate3d_tpu_torch.models.unet_blocks import (
     Upsample2D,
 )
 from animate3d_tpu_torch.ops import routing
+from animate3d_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -169,6 +170,7 @@ class MVMotionUNet(nn.Module):
                               context_fn=routing.recompute_contexts)
         return fn(*args)
 
+    @trace.spanned("unet.forward")
     def forward(self, latents: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
                 camera: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None,

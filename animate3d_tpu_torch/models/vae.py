@@ -14,6 +14,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from animate3d_tpu_torch.utils import trace
+
 
 @dataclass(frozen=True)
 class VAEConfig:
@@ -108,6 +110,7 @@ class Encoder(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch, eps=1e-6)
         self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
 
+    @trace.spanned("vae.encoder")
     def forward(self, x):
         h = self.conv_in(x)
         for lvl in self.down_blocks:
@@ -139,6 +142,7 @@ class Decoder(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch, eps=1e-6)
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
 
+    @trace.spanned("vae.decoder")
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
         for lvl in self.up_blocks:

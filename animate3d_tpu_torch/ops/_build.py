@@ -7,7 +7,9 @@ rebuilds. All missing libraries build in parallel, one ``nvcc`` each. A
 failed build or load raises; nothing here runs at import time.
 
 ``LAUNCHES`` counts kernel launches by (counter name, shape key): each
-wrapper adds one right where it launches its kernel, and nowhere else.
+wrapper adds one right where it launches its kernel, and nowhere else. It
+is ``utils/trace.COUNTERS``, which holds the program's other counters
+beside them under other names.
 One launch may serve two TPU kernels (``flash_bwd``'s single pass writes
 what the TPU's dq and dkv kernels wrote: it counts one ``flash_bwd_dq`` when
 it writes dq and one ``flash_bwd_dkv`` when it writes dk / dv), and one
@@ -29,6 +31,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from animate3d_tpu_torch.utils import trace
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -40,7 +44,7 @@ COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv"
             "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd",
             "composite_fields_fwd", "composite_fields_bwd", "packed_temporal")
 
-LAUNCHES: "collections.Counter[tuple]" = collections.Counter()
+LAUNCHES: "collections.Counter[tuple]" = trace.COUNTERS
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -54,7 +58,8 @@ def launch_totals() -> Dict[str, int]:
     """Launches per counter name, summed over shapes."""
     totals = {name: 0 for name in COUNTERS}
     for (name, _), n in LAUNCHES.items():
-        totals[name] += n
+        if name in totals:
+            totals[name] += n
     return totals
 
 

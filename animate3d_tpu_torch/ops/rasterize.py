@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from animate3d_tpu_torch.ops import _build, routing
+from animate3d_tpu_torch.utils import trace
 from animate3d_tpu_torch.utils.rotation import quat_to_matrix
 from animate3d_tpu_torch.utils.sh import sh_color
 
@@ -160,6 +161,7 @@ def _coarse_grid(cfg: RasterConfig):
 
 
 @torch.no_grad()
+@trace.spanned("rasterize.select")
 def _coarse_select(proj: Projected, cfg: RasterConfig):
     """Per view and coarse tile, the kc depth-nearest overlapping gaussians
     front to back (exact top-k; ties keep ``torch.topk``'s order, which only
@@ -213,6 +215,7 @@ def _pad_k(idx: torch.Tensor, ok: torch.Tensor, k: int):
 
 
 @torch.no_grad()
+@trace.spanned("rasterize.select")
 def _tile_select(proj: Projected, cfg: RasterConfig):
     """Per view and fine tile, the ``max_per_tile`` depth-nearest overlapping
     gaussians front to back, one exact top-k over all N (``:385-436``).
@@ -505,6 +508,7 @@ class CompositeCoarseFn(torch.autograd.Function):
         return _composite_coarse_plain(fields, corig, *ctx.args)
 
     @staticmethod
+    @trace.spanned("rasterize.composite_bwd")
     def backward(ctx, g):
         fields, corig = ctx.saved_tensors
         g = g.contiguous()
@@ -740,6 +744,7 @@ class CompositeFieldsFn(torch.autograd.Function):
         return _composite_fields_plain(fields, origins, *ctx.args)
 
     @staticmethod
+    @trace.spanned("rasterize.composite_bwd")
     def backward(ctx, g):
         fields, origins = ctx.saved_tensors
         g = g.contiguous()
@@ -771,6 +776,7 @@ def _colors(means3d, camera, shs, colors_precomp, active_sh_degree):
     return sh_color(active_sh_degree, shs, dirs)
 
 
+@trace.spanned("rasterize.project")
 def _project(means3d, scales, rotations, opacity, camera, cfg, shs, colors_precomp,
              scale_modifier, active_sh_degree):
     """→ (projection, colors (B, N, 3), opacity (B, N)) of B views."""
@@ -882,12 +888,14 @@ def rasterize(means3d: torch.Tensor, scales: torch.Tensor, rotations: torch.Tens
     t = cfg.tile
     if fields_route:
         fields, origins, _, overflow = tile_fields(*args)
-        planes = CompositeFieldsFn.apply(fields, origins, t, cfg.alpha_min, cfg.alpha_max)
+        with trace.span("rasterize.composite"):
+            planes = CompositeFieldsFn.apply(fields, origins, t, cfg.alpha_min, cfg.alpha_max)
         p = planes.reshape(b, cfg.tiles_y, cfg.tiles_x, 8, t, t)
     else:
         fields, corig, _, overflow = coarse_fields(*args)
-        planes = CompositeCoarseFn.apply(fields, corig, cfg.coarse, t, cfg.alpha_min,
-                                         cfg.alpha_max)
+        with trace.span("rasterize.composite"):
+            planes = CompositeCoarseFn.apply(fields, corig, cfg.coarse, t, cfg.alpha_min,
+                                             cfg.alpha_max)
         cs, cty, ctx = _coarse_grid(cfg)
         p = planes.reshape(b, cty, ctx, cs, cs, 8, t, t).permute(0, 1, 3, 2, 4, 5, 6, 7)
         p = p.reshape(b, cty * cs, ctx * cs, 8, t, t)[:, :cfg.tiles_y, :cfg.tiles_x]

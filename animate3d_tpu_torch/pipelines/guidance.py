@@ -35,6 +35,7 @@ from animate3d_tpu_torch.core.registry import register
 from animate3d_tpu_torch.core.schedule import C
 from animate3d_tpu_torch.models.clip import resize_bilinear
 from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
+from animate3d_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -80,6 +81,7 @@ class AnimateMVGuidance:
         self.scheduler = scheduler or DDIMScheduler(SchedulerConfig(), device=device)
         self.image_encode = image_encode
 
+    @trace.spanned("guidance.encode")
     def _chunked_vae_encode(self, x: torch.Tensor):
         chunk = self.cfg.vae_encode_chunk
         n = x.shape[0]
@@ -111,6 +113,7 @@ class AnimateMVGuidance:
         c2w_v[:, :3, 3] = t / (torch.linalg.norm(t, dim=1, keepdim=True) + 1e-8)
         return c2w_v.reshape(bn, 16)
 
+    @trace.spanned("guidance.unet_cfg")
     def _cfg_eps(self, x, t, ctx, cam2, img2):
         eps = self.unet_apply(x, t, ctx, cam2, img2,
                               i2v_cond_time_zero=self.cfg.i2v_cond_time_zero)

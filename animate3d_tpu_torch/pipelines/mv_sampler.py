@@ -26,6 +26,7 @@ from animate3d_tpu_torch.models.diffusion import (
     SchedulerConfig,
     freeinit_blend,
 )
+from animate3d_tpu_torch.utils import trace
 from animate3d_tpu_torch.utils.camera import get_camera
 
 
@@ -121,16 +122,18 @@ class MVSampler:
         cam2 = torch.cat([camera, camera], dim=0)
         for t in timesteps:
             t0 = time.perf_counter()
-            eps = self.unet(torch.cat([latents, latents], dim=0), t, text_ctx,
-                            cam2, image_embeds,
-                            i2v_cond_time_zero=cfg.i2v_cond_time_zero)
-            eps_uncond, eps_text = eps.chunk(2, dim=0)
-            eps = eps_uncond + cfg.guidance_scale * (eps_text - eps_uncond)
-            prev, _ = self.scheduler.step(eps.float(), t, latents,
-                                          cfg.num_inference_steps)
-            latents = torch.cat([first_frame_latents, prev[:, 1:]], dim=1)
-            if latents.is_cuda:
-                torch.cuda.synchronize(latents.device)
+            with trace.span("mv_sampler.step"):
+                eps = self.unet(torch.cat([latents, latents], dim=0), t, text_ctx,
+                                cam2, image_embeds,
+                                i2v_cond_time_zero=cfg.i2v_cond_time_zero)
+                eps_uncond, eps_text = eps.chunk(2, dim=0)
+                eps = eps_uncond + cfg.guidance_scale * (eps_text - eps_uncond)
+                prev, _ = self.scheduler.step(eps.float(), t, latents,
+                                              cfg.num_inference_steps)
+                latents = torch.cat([first_frame_latents, prev[:, 1:]], dim=1)
+                if latents.is_cuda:
+                    with trace.span("mv_sampler.step_sync"):
+                        trace.synchronize(latents.device)
             self.step_seconds.append(time.perf_counter() - t0)
         return latents
 
@@ -168,12 +171,13 @@ class MVSampler:
         timesteps = self.active_timesteps()
         num_iters = cfg.freeinit_num_iters if cfg.freeinit_enabled else 1
         for it in range(num_iters):
-            if cfg.freeinit_enabled and it > 0:
-                fresh = torch.randn(shape, generator=generator, device=self.device)
-                latents = self.freeinit_renoise(latents, first_frame_latents,
-                                                initial_noise, fresh)
-            latents = self.denoise(latents, first_frame_latents, text_ctx, camera,
-                                   img2, timesteps)
+            with trace.span("mv_sampler.round"):
+                if cfg.freeinit_enabled and it > 0:
+                    fresh = torch.randn(shape, generator=generator, device=self.device)
+                    latents = self.freeinit_renoise(latents, first_frame_latents,
+                                                    initial_noise, fresh)
+                latents = self.denoise(latents, first_frame_latents, text_ctx, camera,
+                                       img2, timesteps)
         return latents
 
 

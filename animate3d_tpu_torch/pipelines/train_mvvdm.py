@@ -40,6 +40,7 @@ import torch
 
 from animate3d_tpu_torch.models.diffusion import DDIMScheduler
 from animate3d_tpu_torch.parallel import mesh as pmesh
+from animate3d_tpu_torch.utils import trace
 
 TRAINABLE_KEY_MARKERS = (
     "motion_modules",  # all temporal transformers
@@ -175,13 +176,15 @@ class MasterAdamW:
     def sharded(self) -> bool:
         return any(sl is not None for sl in self.shards)
 
+    @trace.spanned("master_adamw.step")
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """One update from the gradients of the masters, in their order
         (any dtype; upcast to f32). Returns the global norm before clipping."""
         grads = [g.float() for g in grads]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        if not bool(norm < self.max_grad_norm):
-            grads = [g / norm * self.max_grad_norm for g in grads]
+        with trace.span("master_adamw.clip"):
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if not bool(norm < self.max_grad_norm):
+                grads = [g / norm * self.max_grad_norm for g in grads]
         for p, g, sl in zip(self._params, grads, self.shards):
             p.grad = g if sl is None else g[sl]
         for group in self.adamw.param_groups:
@@ -284,15 +287,18 @@ def apply_gradients(unet: torch.nn.Module, opt: MasterAdamW,
     return opt.step(grads)
 
 
+@trace.spanned("train_mvvdm.step")
 def train_step(unet: torch.nn.Module, opt: MasterAdamW, batch: TrainBatch,
                cfg: MVVDMTrainConfig, scheduler: DDIMScheduler,
                generator: torch.Generator, mesh: Optional[pmesh.Mesh] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimisation step on this rank's batch; returns {"loss" (the mean
     over the mesh's dp ranks), "grad_norm"} as device scalars."""
-    t, noise, drop = draw(batch, cfg, scheduler.config.num_train_timesteps, generator, mesh)
-    loss = loss_fn(unet, batch, t, noise, drop, cfg, scheduler)
-    loss.backward()
+    with trace.span("train_mvvdm.forward"):
+        t, noise, drop = draw(batch, cfg, scheduler.config.num_train_timesteps, generator, mesh)
+        loss = loss_fn(unet, batch, t, noise, drop, cfg, scheduler)
+    with trace.span("train_mvvdm.backward"):
+        loss.backward()
     loss = loss.detach()
     if mesh is not None:
         loss = loss.clone()

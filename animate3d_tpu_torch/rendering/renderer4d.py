@@ -28,6 +28,7 @@ import torch
 
 from animate3d_tpu_torch.gaussians.state import GaussianState
 from animate3d_tpu_torch.ops.rasterize import GSCameraArrays, RasterConfig, rasterize
+from animate3d_tpu_torch.utils import trace
 
 _PLANE_ELEMS = 1 << 28  # f32 plane elements per rasterize call (1 GiB)
 
@@ -71,6 +72,7 @@ def make_draws(cfg: Renderer4DConfig, b: int, n: int, generator: torch.Generator
     return RenderDraws(st, torch.rand((), generator=generator, device=generator.device))
 
 
+@trace.spanned("renderer4d.render_batch")
 def render_batch(state: GaussianState, deform_fn: Optional[Callable],
                  cameras: GSCameraArrays, timestamps: torch.Tensor, cfg: Renderer4DConfig,
                  draws: Optional[RenderDraws] = None,

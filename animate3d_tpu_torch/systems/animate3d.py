@@ -56,6 +56,7 @@ from animate3d_tpu_torch.rendering.renderer4d import (
     make_draws,
     render_batch,
 )
+from animate3d_tpu_torch.utils import trace
 from animate3d_tpu_torch.utils.loss import tv_loss
 
 
@@ -132,6 +133,7 @@ class DeformAdam:
             p.grad = None
 
     @torch.no_grad()
+    @trace.spanned("deform_adam.step")
     def step(self) -> None:
         count = self.count + 1
         f32 = lambda v: torch.tensor(v, dtype=torch.float32)
@@ -308,6 +310,7 @@ class Animate3DSystem:
 
     # -- loss --------------------------------------------------------------------
 
+    @trace.spanned("arap.loss")
     def _arap(self, means_per_frame: torch.Tensor, frame_w: torch.Tensor,
               draws: StepDraws) -> torch.Tensor:
         """means_per_frame: (F', Nv, 3) first-view trajectory."""
@@ -329,6 +332,7 @@ class Animate3DSystem:
         """This rank's items of ``n`` (all of them without a dp mesh)."""
         return slice(0, n) if self.mesh is None else pmesh.shard_rows(self.mesh, n)
 
+    @trace.spanned("animate3d.loss")
     def loss(self, cameras: GSCameraArrays, timestamps: torch.Tensor, gt_rgb: torch.Tensor,
              gt_mask: torch.Tensor, frame_w: torch.Tensor, lambdas: Dict[str, float],
              draws: Optional[StepDraws] = None):
@@ -401,6 +405,7 @@ class Animate3DSystem:
 
     # -- public ------------------------------------------------------------------
 
+    @trace.spanned("animate3d.step_batch")
     def step_batch(self, batch: Dict[str, Any]):
         """(cameras, timestamps, rgb, mask, frame weights) of this step's
         items: the bucketed or 'light' subset of the whole-video batch."""
@@ -460,6 +465,7 @@ class Animate3DSystem:
         """Every dp rank's rows of ``x`` (``x`` itself without a dp mesh)."""
         return x if self.mesh is None else _GatherRows.apply(x, self.mesh)
 
+    @trace.spanned("guidance.sds")
     def sds_loss(self, guidance_batch: Dict[str, Any], lambdas: Dict[str, float],
                  draws=None) -> torch.Tensor:
         """The 4D-SDS loss of the SDS batch, differentiable in the field's
@@ -505,6 +511,7 @@ class Animate3DSystem:
             g["c2w"], g["image_embeds"], int(mx), num_steps, noise=noise,
             generator=self.generator)
 
+    @trace.spanned("animate3d.step")
     def step(self, batch: Dict[str, Any], draws: Optional[StepDraws] = None,
              guidance_batch: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """One optimisation step on the whole-video batch (``gs_cameras``,
@@ -527,7 +534,8 @@ class Animate3DSystem:
             loss_sds = self.sds_loss(guidance_batch, lambdas, draws.guidance)
             loss = loss + lambdas["lambda_sds"] * loss_sds
         self.opt.zero_grad()
-        loss.backward()
+        with trace.span("animate3d.backward"):
+            loss.backward()
         if self.mesh is not None:  # each rank's loss is a part of the sum
             params = list(self.opt.params.values())
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]

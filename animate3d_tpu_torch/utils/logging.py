@@ -1,5 +1,5 @@
-"""Observability: step timers, metrics logging (JSONL and TensorBoard),
-profiler traces and the UI progress file; the port of
+"""Observability: metrics logging (JSONL and TensorBoard), profiler traces
+with the counters of ``utils/trace.py`` and the UI progress file; the port of
 ``animate3d_tpu/utils/logging.py`` (its ``WandbLogger`` is not ported: it
 publishes to an outside service, and ``use_wandb`` raises in the trainer)."""
 
@@ -13,33 +13,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-
-class StepTimer:
-    """``with timer:`` around a step; ``.last`` holds its seconds. On a CUDA
-    ``device`` the exit synchronises it first, so the time is the device's
-    work and not its enqueue."""
-
-    def __init__(self, device=None):
-        self.device = torch.device(device) if device is not None else None
-        self.last = 0.0
-        self.total = 0.0
-        self.count = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.last = time.perf_counter() - self._t0
-        self.total += self.last
-        self.count += 1
-        return False
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.count, 1)
+from animate3d_tpu_torch.utils import trace
 
 
 class MetricsLogger:
@@ -82,12 +56,19 @@ class MetricsLogger:
             self._tb.close()
 
 
+PROFILE_STEPS = range(10, 20)  # the steps a training loop's ``--profile_dir`` traces
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """A ``torch.profiler`` trace of the block (CPU, and CUDA where there is
-    a card) written as a chrome trace under ``log_dir`` when it is set;
-    a no-op otherwise. Yields the profiler (None when off); its
-    ``trace_path`` names the file once the block has ended."""
+    a card) written as a chrome trace under ``log_dir`` when it is set, with
+    the port's spans (``utils/trace.py``) over the kernels on one clock, and
+    beside it ``summary.json``: the change of ``trace.COUNTERS`` over the
+    block (spans, host syncs, weight casts, kernel launches), ``{name:
+    {key: n}}``. A no-op otherwise. Yields the profiler (None when off); its
+    ``trace_path`` and ``summary_path`` name the files once the block has
+    ended."""
     if not log_dir:
         yield None
         return
@@ -97,10 +78,45 @@ def profile_trace(log_dir: Optional[str]):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    before = trace.snapshot()
     with profile(activities=activities) as prof:
         yield prof
+    counts = trace.changes(before)
     prof.trace_path = os.path.join(log_dir, f"trace.{os.getpid()}.{time.time_ns()}.json")
     prof.export_chrome_trace(prof.trace_path)
+    prof.summary_path = os.path.join(log_dir, "summary.json")
+    with open(prof.summary_path, "w") as f:
+        json.dump(trace.as_json(counts), f, indent=1)
+
+
+class StepProfile:
+    """A training loop's ``--profile_dir``: :func:`profile_trace` over the
+    loop's steps ``PROFILE_STEPS``, counted from the first step the loop
+    runs, after the shapes have warmed. ``before(i)`` and ``after(i)``
+    around the i-th step; :meth:`close` (or leaving a ``with`` block) ends
+    a trace that a shorter run left open."""
+
+    def __init__(self, log_dir: Optional[str]):
+        self.log_dir = log_dir
+        self._stack = contextlib.ExitStack()
+
+    def before(self, i: int) -> None:
+        if self.log_dir and i == PROFILE_STEPS.start:
+            self._stack.enter_context(profile_trace(self.log_dir))
+
+    def after(self, i: int) -> None:
+        if i == PROFILE_STEPS[-1]:
+            self.close()
+
+    def close(self) -> None:
+        self._stack.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 class ProgressWriter:

@@ -59,11 +59,6 @@ def test_progress_writer_rewrites_one_line(tmp_path):
 
 
 def test_step_timer_and_profile_trace(tmp_path):
-    timer = TL.StepTimer("cpu")
-    for _ in range(2):
-        with timer:
-            torch.ones(8).sum()
-    assert timer.count == 2 and timer.mean > 0
     with TL.profile_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.load(open(prof.trace_path))
