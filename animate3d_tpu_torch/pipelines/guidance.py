@@ -3,9 +3,16 @@ port of ``animate3d_tpu/pipelines/guidance.py``.
 
   * renders → the guidance size (``resize_bilinear``, JAX's antialiased
     resample) → VAE posterior *sample* x 0.18215, encoded in chunks of
-    ``vae_encode_chunk`` images, each recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant) so one chunk's encoder
-    activations are live at a time;
+    ``vae_encode_chunk`` images. A memory plan (:func:`encode_plan`) keeps
+    the first chunks' encoder activations for the backward while the card
+    has room for them, :data:`ENCODE_HEADROOM_BYTES` and, where not all
+    are kept, the one chunk a recompute rebuilds, and recomputes the rest
+    in the backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
+    package recomputes every chunk to fit a 16 GB chip. A chunk's bytes are
+    the allocator's growth across a kept chunk's forward or a recomputed
+    chunk's recompute. Where the device has no allocator to read (the CPU),
+    or before a chunk's bytes have been measured (the first call at a
+    shape), every chunk is recomputed;
   * IP-Adapter image embeds from each view's first frame, recomputed every
     step without gradients when a vision tower is loaded;
   * one random t per video in [min_step, max_step], annealed by ``C()``;
@@ -25,8 +32,10 @@ are one autograd graph; :meth:`AnimateMVGuidance.pixel_grad` also returns
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,8 +47,58 @@ from animate3d_tpu_torch.models.diffusion import DDIMScheduler, SchedulerConfig
 from animate3d_tpu_torch.utils import trace
 
 
+# Room the refine step needs beside the encoder activations the plan keeps
+# (and the one chunk a recompute rebuilds): the CFG UNet call that runs
+# while they are held, the backward's buffers, the allocator's cached but
+# unallocated blocks and the CUDA context, none of which the allocated count
+# holds. On an H100 80GB at refine_frame_16.yaml's shapes (64 SDS renders at
+# 256², chunks of 8 holding 6.40e9 bytes each, all 8 kept) the step peaked
+# at 62.21e9 bytes allocated: 1.76e9 above the lower of the two decision
+# readings (9.25e9 and 9.83e9 allocated, one each refine bucket) plus the
+# kept chunks; the allocator reserved 1.82e9 more (64.04e9), and the CUDA
+# context and libraries held 0.80e9 outside it (read by
+# tests/test_torch_guidance_memory.py on the card). 6 GiB covers those
+# 4.38e9 with 2.06e9 to spare.
+ENCODE_HEADROOM_BYTES = 6 * 2 ** 30
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(index: int) -> int:
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def device_memory(device) -> Optional[Tuple[int, int]]:
+    """(bytes allocated, capacity) of a CUDA device, from the caching
+    allocator's host-side counter (no sync); None on a device without one."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch.cuda.memory_allocated(index), _capacity(index)
+
+
+def encode_plan(n_chunks: int, chunk_bytes: Optional[int],
+                memory: Optional[Tuple[int, int]]) -> Tuple[bool, ...]:
+    """Which chunks of an encode keep their activations (True) rather
+    than recompute them: all of them where the bytes allocated, theirs and
+    :data:`ENCODE_HEADROOM_BYTES` fit the capacity; else the first ones,
+    leaving room for the one chunk a recompute rebuilds in the backward
+    while the kept chunks are still held; none where the device memory
+    (:func:`device_memory`) or a chunk's bytes are unknown."""
+    if memory is None or chunk_bytes is None:
+        return (False,) * n_chunks
+    allocated, capacity = memory
+    fits = (capacity - allocated - ENCODE_HEADROOM_BYTES) // max(chunk_bytes, 1)
+    kept = n_chunks if fits >= n_chunks else max(0, fits - 1)
+    return (True,) * kept + (False,) * (n_chunks - kept)
+
+
 @dataclass(frozen=True)
 class GuidanceConfig:
+    """The guidance's settings. ``vae_encode_chunk`` is the unit of the SDS
+    encode and of its memory plan: each chunk of that many images keeps its
+    encoder activations for the backward or recomputes them there."""
+
     guidance_scale: float = 5.0
     n_view: int = 4
     n_frame: int = 16
@@ -80,6 +139,20 @@ class AnimateMVGuidance:
         self.cfg = cfg
         self.scheduler = scheduler or DDIMScheduler(SchedulerConfig(), device=device)
         self.image_encode = image_encode
+        # bytes a chunk's encode holds for its backward, by chunk shape
+        self._chunk_bytes: Dict[tuple, int] = {}
+
+    @contextlib.contextmanager
+    def _holding(self, key: tuple, device):
+        """Record under ``key`` the most the allocator's count grew across
+        the block: a kept chunk's forward, or a recomputed chunk's second
+        forward in the backward (its first holds only its output)."""
+        before = device_memory(device)[0]
+        try:
+            yield
+        finally:  # also where checkpoint stops a recompute after its last saved tensor
+            held = device_memory(device)[0] - before
+            self._chunk_bytes[key] = max(held, self._chunk_bytes.get(key, 0))
 
     @trace.spanned("guidance.encode")
     def _chunked_vae_encode(self, x: torch.Tensor):
@@ -87,8 +160,22 @@ class AnimateMVGuidance:
         n = x.shape[0]
         if chunk <= 0 or n <= chunk or n % chunk != 0 or not torch.is_grad_enabled():
             return self.vae_encode(x)
-        parts = [checkpoint(self.vae_encode, x[i:i + chunk], use_reentrant=False)
-                 for i in range(0, n, chunk)]
+        memory = device_memory(x.device)
+        key = (chunk, *x.shape[1:], x.dtype)
+        plan = encode_plan(n // chunk, self._chunk_bytes.get(key), memory)
+        holding = contextlib.nullcontext if memory is None else functools.partial(
+            self._holding, key, x.device)
+        parts = []
+        for i, keep in zip(range(0, n, chunk), plan):
+            if keep:
+                with holding():
+                    parts.append(self.vae_encode(x[i:i + chunk]))
+            else:
+                parts.append(checkpoint(self.vae_encode, x[i:i + chunk], use_reentrant=False,
+                                        context_fn=lambda: (contextlib.nullcontext(), holding())))
+        kept = sum(plan)
+        trace.count(("vae_encode_chunk", "kept"), kept)
+        trace.count(("vae_encode_chunk", "recomputed"), len(plan) - kept)
         return tuple(torch.cat([p[j] for p in parts]) for j in range(2))
 
     def min_max_step(self, global_step: int) -> Tuple[int, int]:

@@ -23,7 +23,9 @@ On:
     on autograd's device thread is replayed as a warning when
     ``backward()`` returns, and counts under the span that called it;
   * :func:`cast` counts each weight cast that launches under
-    ``("weight_cast", "<from>-><to>")``.
+    ``("weight_cast", "<from>-><to>")``;
+  * :func:`count` adds to any other ``(name, key)`` counter (the SDS
+    encode's ``("vae_encode_chunk", "kept" | "recomputed")``).
 
 ``COUNTERS`` is also ``ops/_build.LAUNCHES``, the kernel launch counts by
 (counter, shape): every key is a ``(name, key)`` pair. The spans and
@@ -194,6 +196,12 @@ def cast(t, dtype: torch.dtype):
     if _profiler._is_profiler_enabled:
         _add((("weight_cast", f"{str(t.dtype)[6:]}->{str(dtype)[6:]}"), 1))
     return t.to(dtype)
+
+
+def count(key: tuple, n: int) -> None:
+    """Add ``n`` to the counter ``key`` while tracing is on."""
+    if _profiler._is_profiler_enabled:
+        _add((key, n))
 
 
 # -- reading the counters ---------------------------------------------------------

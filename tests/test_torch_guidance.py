@@ -60,6 +60,7 @@ from animate3d_tpu_torch.systems.animate3d import (
     LossConfig,
     StepDraws,
 )
+from animate3d_tpu_torch.utils import trace
 
 from torch_cpu_host import warm_vml
 
@@ -123,7 +124,7 @@ def pair():
                 ie_params=ie_params, unet=unet, vae=tvae, vision=vision, **inputs)
 
 
-def _port_guidance(pair, unet=None, vision=True, vae=None):
+def _port_guidance(pair, unet=None, vision=True, vae=None, encode=None, **cfg):
     unet = unet or pair["unet"]
 
     def unet_apply(lat, t, ctx, cam, ie, i2v_cond_time_zero=False):
@@ -132,8 +133,9 @@ def _port_guidance(pair, unet=None, vision=True, vae=None):
 
     image_encode = (lambda imgs: encode_ip_adapter_images(pair["vision"], imgs)) if vision \
         else None
-    return TG.AnimateMVGuidance(unet_apply, (vae or pair["vae"]).encode,
-                                TG.GuidanceConfig(n_view=NV, n_frame=NF, image_size=G_RES),
+    return TG.AnimateMVGuidance(unet_apply, encode or (vae or pair["vae"]).encode,
+                                TG.GuidanceConfig(n_view=NV, n_frame=NF, image_size=G_RES,
+                                                  **cfg),
                                 image_encode=image_encode)
 
 
@@ -156,12 +158,10 @@ def _c2w(seed):
     return cams["c2w"]
 
 
-def test_pixel_grad_matches_jax_f32(pair):
-    """Loss and ∂loss/∂rgb, f32, vision tower in the loop (per-view frame-0
-    embeds, the 16² renders upsampled to its 28²): loss within 1e-4
-    relative, gradient within 1e-3 relative L2. (The refine path renders the
-    SDS batch at the guidance size, so the guidance's own resize does not
-    run there; the resample itself is held in test_torch_conditioning.py.)"""
+@pytest.fixture(scope="module")
+def f32_case(pair):
+    """The f32 case's renders, cameras and draws, and the JAX guidance's
+    loss and ∂loss/∂rgb on them (vision tower in the loop)."""
     jg = pair["jg"]
     res = G_RES
     rng = np.random.default_rng(res)
@@ -173,15 +173,85 @@ def test_pixel_grad_matches_jax_f32(pair):
                                   jnp.asarray(pair["text_c"]), jnp.asarray(pair["text_u"]),
                                   jnp.asarray(c2w), jnp.asarray(pair["img"]), key, (20, 200),
                                   ie_params=pair["ie_params"])
-    draws = _jax_draws(key, (20, 200), NV * NF, LAT)
-    tg = _port_guidance(pair)
-    loss, grad = tg.pixel_grad(torch.from_numpy(rgb), torch.from_numpy(pair["text_c"]),
-                               torch.from_numpy(pair["text_u"]), c2w,
-                               torch.from_numpy(pair["img"]), (20, 200), draws)
-    assert np.isfinite(float(jl)) and float(jl) > 0
-    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-4)
-    assert np.abs(np.asarray(jgrad)).max() > 0
-    assert _rel_l2(grad.numpy(), np.asarray(jgrad)) <= 1e-3
+    return dict(rgb=rgb, c2w=c2w, draws=_jax_draws(key, (20, 200), NV * NF, LAT),
+                jl=float(jl), jgrad=np.asarray(jgrad))
+
+
+def _pixel_grad(pair, case, tg):
+    return tg.pixel_grad(torch.from_numpy(case["rgb"]), torch.from_numpy(pair["text_c"]),
+                         torch.from_numpy(pair["text_u"]), case["c2w"],
+                         torch.from_numpy(pair["img"]), (20, 200), case["draws"])
+
+
+def _assert_matches_jax_f32(case, loss, grad):
+    np.testing.assert_allclose(float(loss), case["jl"], rtol=1e-4)
+    assert _rel_l2(grad.numpy(), case["jgrad"]) <= 1e-3
+
+
+def test_pixel_grad_matches_jax_f32(pair, f32_case):
+    """Loss and ∂loss/∂rgb, f32, vision tower in the loop (per-view frame-0
+    embeds, the 16² renders upsampled to its 28²): loss within 1e-4
+    relative, gradient within 1e-3 relative L2. (The refine path renders the
+    SDS batch at the guidance size, so the guidance's own resize does not
+    run there; the resample itself is held in test_torch_conditioning.py.)"""
+    loss, grad = _pixel_grad(pair, f32_case, _port_guidance(pair))
+    assert np.isfinite(f32_case["jl"]) and f32_case["jl"] > 0
+    assert np.abs(f32_case["jgrad"]).max() > 0
+    _assert_matches_jax_f32(f32_case, loss, grad)
+
+
+def test_encode_plan_keeps_chunks_while_they_fit():
+    """The plan's arithmetic alone: 64 images at 256² in chunks of 8, 760
+    MiB an image, 10 GB allocated."""
+    chunk_bytes = 8 * 760 * 2 ** 20
+    assert TG.encode_plan(8, chunk_bytes, (10 * 10 ** 9, 80 * 10 ** 9)) == (True,) * 8
+    assert TG.encode_plan(8, chunk_bytes, (10 * 10 ** 9, 16 * 10 ** 9)) == (False,) * 8
+    assert TG.device_memory(torch.device("cpu")) is None
+    assert TG.encode_plan(8, chunk_bytes, TG.device_memory(torch.device("cpu"))) == (False,) * 8
+    assert TG.encode_plan(8, None, (0, 80 * 10 ** 9)) == (False,) * 8  # not measured yet
+
+
+CHUNK_BYTES = 1000
+
+
+def _encode_counts(fn):
+    """``fn()`` under a CPU profiler session → (its result, the change of
+    the ``vae_encode_chunk`` counters)."""
+    before = trace.snapshot()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    trace.span("_")  # outside the session: the tracer's hooks off again
+    return out, {k: n for (c, k), n in trace.changes(before).items() if c == "vae_encode_chunk"}
+
+
+@pytest.mark.parametrize("kept", [4, 0, 2], ids=["all_kept", "all_recomputed", "mixed"])
+def test_chunked_encode_plans_match_the_unchunked_encode(pair, f32_case, monkeypatch, kept):
+    """``vae_encode_chunk`` 2 splits the 8 renders into 4 chunks. The memory
+    probe reads a card on which each chunk's encode holds 1000 bytes more:
+    the first call, its chunks' bytes not yet measured, recomputes every
+    chunk and learns them in the backward; the second keeps ``kept`` chunks
+    on a card with room for ``kept`` + 1 and a half of them (one for the
+    recompute). Loss and ∂loss/∂rgb equal the unchunked
+    encode's to 1e-6 relative and JAX's within the f32 tolerances; the
+    counters count the plan."""
+    card = {"allocated": 0, "capacity": 0}
+    monkeypatch.setattr(TG, "device_memory",
+                        lambda device: (card["allocated"], card["capacity"]))
+
+    def encode(x):
+        card["allocated"] += CHUNK_BYTES
+        return pair["vae"].encode(x)
+
+    want_loss, want_grad = _pixel_grad(pair, f32_case, _port_guidance(pair))
+    tg = _port_guidance(pair, encode=encode, vae_encode_chunk=2)
+    _, counts = _encode_counts(lambda: _pixel_grad(pair, f32_case, tg))
+    assert counts == {"recomputed": 4}
+    card.update(allocated=0, capacity=TG.ENCODE_HEADROOM_BYTES + (kept + 1) * CHUNK_BYTES + 500)
+    (loss, grad), counts = _encode_counts(lambda: _pixel_grad(pair, f32_case, tg))
+    assert counts == {k: n for k, n in (("kept", kept), ("recomputed", 4 - kept)) if n}
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+    assert _rel_l2(grad.numpy(), want_grad.numpy()) <= 1e-6
+    _assert_matches_jax_f32(f32_case, loss, grad)
 
 
 def test_pixel_grad_matches_jax_bf16(pair):
