@@ -16,6 +16,14 @@ from ``--prompt`` through the text tower and tokenizer when both were
 loaded, else zeros; the IP-Adapter image embeds come from the conditioning
 renders through the vision tower when it was loaded, else zeros.
 
+With a yaml whose ``model_type`` is ``svd_xt``
+(``configs/inference/svd_xt.yaml``) the same entry point runs Stable Video
+Diffusion XT image-to-video instead: ``--image <png>`` (resized to the
+yaml's ``width`` x ``height``) through ``pipelines/svd_sampler.py``
+(``models/factory.py::build_svd_models``, then the released ``unet/``,
+``vae/``, ``image_encoder/`` under ``--flax_params`` where they exist), and
+a ``num_frames``-frame GIF. ``model_type`` defaults to the MV-VDM.
+
 ``--mesh_sp N`` (or the yaml's ``mesh_sp``), under ``torchrun`` with N
 processes (NCCL on CUDA, gloo with ``--device cpu``), shards the token axis
 of the long self-attention sites over the N ranks: K/V travel around a ring
@@ -44,8 +52,10 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default=None, help="inference yaml")
     parser.add_argument("--prompt", default="")
-    parser.add_argument("--ip_image_root", required=True,
-                        help="dir with the N conditioning renders {0..N-1}.png")
+    parser.add_argument("--ip_image_root", default=None,
+                        help="dir with the N conditioning renders {0..N-1}.png (MV-VDM)")
+    parser.add_argument("--image", default=None,
+                        help="the conditioning image of model_type svd_xt")
     parser.add_argument("--ip_image_name", default="")
     parser.add_argument("--save_name", default="sample")
     parser.add_argument("--output_dir", default="outputs/inference")
@@ -56,11 +66,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--prompt_embeds_path", default=None)
     parser.add_argument("--model_size", default=None, choices=[None, "full", "tiny"],
                         help="tiny = test scale (overrides config)")
-    parser.add_argument("-W", type=int, default=256)
-    parser.add_argument("-H", type=int, default=256)
-    parser.add_argument("-L", type=int, default=16)
+    parser.add_argument("-W", type=int, default=None, help="width (default 256; svd_xt: yaml)")
+    parser.add_argument("-H", type=int, default=None, help="height (default 256; svd_xt: yaml)")
+    parser.add_argument("-L", type=int, default=None, help="frames (default 16; svd_xt: yaml)")
     parser.add_argument("-N", type=int, default=4)
-    parser.add_argument("--steps", type=int, default=25)
+    parser.add_argument("--steps", type=int, default=None, help="default 25, or the yaml's")
     parser.add_argument("--guidance_scale", type=float, default=7.5)
     parser.add_argument("--freeinit_iters", type=int, default=3)
     parser.add_argument("--seed", type=int, default=8673)
@@ -102,6 +112,15 @@ def main(argv=None) -> dict:
     if args.config:
         with open(args.config) as fh:
             cfg_yaml = yaml.safe_load(fh) or {}
+    model_type = cfg_yaml.get("model_type", "mvvdm")
+    if model_type == "svd_xt":
+        return _svd_main(args, cfg_yaml)
+    if model_type != "mvvdm":
+        parser.error(f"model_type {model_type!r} is not one of 'mvvdm', 'svd_xt'")
+    if not args.ip_image_root:
+        parser.error("the MV-VDM needs --ip_image_root")
+    args.W, args.H, args.L = args.W or 256, args.H or 256, args.L or 16
+    args.steps = args.steps or 25
     dev = resolve_device(args.device)
     mesh_sp = int(cfg_yaml.get("mesh_sp", 0) or args.mesh_sp)
     joined, mesh = False, None
@@ -192,6 +211,62 @@ def main(argv=None) -> dict:
     return {"gif": out, "latents": latents, "text_cond": text_cond, "image_embeds": image_embeds,
             "loaded": loaded, "step_seconds": list(sampler.step_seconds),
             "run_seconds": run_seconds, "profile": prof}
+
+
+def _svd_main(args, cfg_yaml: dict) -> dict:
+    """``model_type: svd_xt``: one image to a ``num_frames``-frame video.
+    Returns {"gif", "latents", "frames" (F, H, W, 3) uint8, "loaded",
+    "step_seconds", "run_seconds", "profile"}."""
+    from PIL import Image
+
+    from animate3d_tpu_torch.convert.weights import load_svd_artifacts
+    from animate3d_tpu_torch.core.device import resolve_device
+    from animate3d_tpu_torch.models.factory import build_svd_models
+    from animate3d_tpu_torch.pipelines.svd_sampler import SVDSampler, SVDSamplerConfig
+    from animate3d_tpu_torch.utils import trace
+    from animate3d_tpu_torch.utils.logging import profile_trace
+
+    if not args.image:
+        raise SystemExit("model_type svd_xt needs --image <png>")
+    dev = resolve_device(args.device)
+    model_size = args.model_size or cfg_yaml.get("model_size", "full")
+    unet, vae, vision = build_svd_models(model_size, dev, seed=args.seed)
+    loaded = {}
+    if args.flax_params and os.path.isdir(args.flax_params):
+        dtype = next(unet.parameters()).dtype
+        unet.float()  # released files: round once, after loading
+        loaded = load_svd_artifacts(args.flax_params, unet, vae, vision)
+        unet.to(dtype)
+        print(f"[weights] loaded {sorted(loaded)} from {args.flax_params}: {loaded}")
+    if "unet" not in loaded:
+        print("WARNING: no UNet weights given — random init (smoke mode)")
+    keys = {f.name for f in SVDSamplerConfig.__dataclass_fields__.values()}
+    scfg = SVDSamplerConfig(**{k: v for k, v in cfg_yaml.items() if k in keys})
+    overrides = dict(width=args.W, height=args.H, num_frames=args.L)
+    overrides["num_inference_steps"] = args.steps
+    scfg = SVDSamplerConfig(**{**scfg.__dict__, **{k: v for k, v in overrides.items() if v}})
+    sampler = SVDSampler(unet, vae, vision, scfg)
+    img = Image.open(args.image).convert("RGB").resize((scfg.width, scfg.height), Image.LANCZOS)
+    image = torch.as_tensor(np.asarray(img, np.float32) / 255.0, device=dev)[None]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_run = time.perf_counter()
+    with profile_trace(args.profile_dir) as prof:
+        latents = sampler.sample(image, gen)
+        video = sampler.decode(latents)
+        if dev.type == "cuda":
+            trace.synchronize(dev)
+    run_seconds = time.perf_counter() - t_run
+    frames = ((video[0].clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8).cpu().numpy()
+    out = os.path.join(args.output_dir, args.save_name, "0-svd.gif")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    pil = [Image.fromarray(f) for f in frames]
+    pil[0].save(out, save_all=True, append_images=pil[1:], duration=1000 // scfg.fps, loop=0)
+    print(f"saved {out} ({len(pil)} frames at {scfg.width}x{scfg.height})")
+    return {"gif": out, "latents": latents, "frames": frames, "loaded": loaded,
+            "step_seconds": list(sampler.step_seconds), "run_seconds": run_seconds,
+            "profile": prof}
 
 
 def _similarity_init(cfg_yaml: dict) -> dict:

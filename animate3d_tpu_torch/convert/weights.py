@@ -369,3 +369,30 @@ def tokenizer_root(root: Optional[str]) -> Optional[str]:
         except FileNotFoundError:
             pass
     return None
+
+
+SVD_MODEL_FILES = MODEL_FILES + ("diffusion_pytorch_model.fp16.safetensors",
+                                 "model.fp16.safetensors")
+
+
+def load_svd_artifacts(root: str, unet=None, vae=None, vision_model=None) -> Dict[str, dict]:
+    """Load a Stable Video Diffusion release laid out as on the hub
+    (``unet/``, ``vae/``, ``image_encoder/`` under ``root``) into the port's
+    modules, whose parameter names are diffusers' own: the UNet's and the
+    temporal VAE's keys load as they are (legacy VAE attention names
+    renamed, :func:`vae_key`), the image encoder's as a transformers CLIP
+    vision tower. Returns {component: {missing, unexpected}} for each file
+    found; a component without a file is left out."""
+    audit: Dict[str, dict] = {}
+    for name, module, key in (("unet", unet, lambda k: k), ("vae", vae, vae_key)):
+        path = find_model_file(os.path.join(root, name), SVD_MODEL_FILES) if module else None
+        if path:
+            missing, unexpected = _assign(module, {key(k): v for k, v in
+                                                   load_torch_state_dict(path).items()})
+            audit[name] = {"missing": len(missing), "unexpected": len(unexpected)}
+    path = (find_model_file(os.path.join(root, "image_encoder"), SVD_MODEL_FILES)
+            if vision_model is not None else None)
+    if path:
+        missing, unexpected = load_clip_state(vision_model, path)
+        audit["image_encoder"] = {"missing": len(missing), "unexpected": len(unexpected)}
+    return audit

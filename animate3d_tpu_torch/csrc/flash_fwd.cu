@@ -4,13 +4,16 @@
 // _flash_kernel, reached through _flash_fwd_impl_merged /
 // flash_attention_padded (the TPU's lane-padded merged-head route, heads 40
 // and 80 wide) and _flash_attention_fwd_impl (its unpadded route, which
-// multi_head_attention takes at the 160-wide heads).
+// multi_head_attention takes at the 160-wide heads). At 64-wide heads it
+// replaces no TPU kernel: it serves the spatial self-attention of the
+// Stable Video Diffusion UNet (5 / 10 / 20 heads at 320 / 640 / 1280
+// channels, 9,216 / 2,304 / 576 / 144 tokens a frame at 576 x 1024).
 //
 // Computes, per (batch, head), the non-causal unmasked attention
 //   out = softmax(q k^T * scale) v,   lse = log(sum(exp(q k^T * scale)))
 // reading q/k/v straight from the merged (B, S, H*D) layout through TMA
 // tensor maps (no 128-lane head padding: D = 40 reads as 48 with zero
-// columns, 80 and 160 as they are). K/V may be shared by `kv_group`
+// columns, 64, 80 and 160 as they are). K/V may be shared by `kv_group`
 // consecutive query batches (the I2V branches' frame-0 K/V) through their
 // batch coordinate b / kv_group, so the broadcast is never materialised.
 //
@@ -22,8 +25,9 @@
 //
 // Bound on the H100: per score the tensor cores do 4 * DP flops (QK^T and
 // PV) and the SFU one ex2, at 989e12 flop/s against 3.9e12 ex2/s. At D 40
-// (DP 48) that is 0.19 against 0.26 ns a score, so the SFU binds; at D 80
-// and 160 the tensor cores do. Either way the softmax of one 64-row block
+// (DP 48) that is 0.19 against 0.26 ns a score, so the SFU binds; at D 64
+// (0.26 against 0.26 ns) both are at their limit together; at D 80 and 160
+// the tensor cores bind. Either way the softmax of one 64-row block
 // has to run while the tensor cores work on another. Design (FlashAttention
 // 3's shape): a CTA of three warpgroups owns 128 query rows of one (batch,
 // head). One producer warp issues TMA loads of 128-key K and V tiles into
@@ -329,7 +333,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 
 // q (B, Sq, H*D), k/v (B / kv_group, Sk, H*D), out (B, Sq, H*D) bf16 with the
 // given batch / row strides (elements, unit channel stride; strides and
-// bases 16-byte aligned); lse (B, H, Sq) f32. D is 40, 80 or 160.
+// bases 16-byte aligned); lse (B, H, Sq) f32. D is 40, 64, 80 or 160; Sk
+// any positive length (keys past Sk in the last tile are masked).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int B, int H, int Sq, int Sk, int D, long long q_bs, long long q_rs,
                          long long k_bs, long long k_rs, long long v_bs, long long v_rs,
@@ -342,6 +347,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
                       o_bs, o_rs, kv_group, scale, s);
   switch (D) {
     A3D_CASE(40, 48)
+    A3D_CASE(64, 64)
     A3D_CASE(80, 80)
     A3D_CASE(160, 160)
     default:

@@ -51,6 +51,14 @@
 //     through shared memory.
 // The copies, fragment loads, products, softmax and stores are shared with
 // the backward, kernel E (packed_common.cuh).
+//
+// Padded sequences (PAD): a length that does not divide 128 (the 25-frame
+// temporal attention of the Stable Video Diffusion UNet, 64-wide heads)
+// takes one sequence a 32-row tile. Its S rows are read, rows S..31 are
+// zero-filled by the copies (nothing is read past the sequence), keys S..31
+// are masked at -1e30 before the row max, so exp2 gives them exactly 0 and
+// they add nothing to the row sum or to P v, and only the S query rows are
+// stored. It replaces no TPU kernel (the JAX package has no such model).
 
 #include "packed_common.cuh"
 
@@ -73,10 +81,53 @@ struct Cfg {
   static constexpr int NO = D / 8;    // output n-tiles
 };
 
+// The padded softmax: as softmax_rows (packed_common.cuh), with keys at or
+// past the sequence's length S masked instead of keys of other sequences.
+template <int NT>
+__device__ __forceinline__ void softmax_rows_padded(float (&s)[NT][4], int S, int tq,
+                                                    float scale_log2, float& la, float& lb) {
+  float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float mask = j * 8 + 2 * tq + e < S ? 0.f : -1e30f;
+      s[j][e] = s[j][e] * scale_log2 + mask;
+      s[j][2 + e] = s[j][2 + e] * scale_log2 + mask;
+      mxa = fmaxf(mxa, s[j][e]);
+      mxb = fmaxf(mxb, s[j][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, off));
+    mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
+  }
+  float suma = 0.f, sumb = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = exp2f(s[j][e] - mxa);
+      s[j][2 + e] = exp2f(s[j][2 + e] - mxb);
+      suma += s[j][e];
+      sumb += s[j][2 + e];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    suma += __shfl_xor_sync(0xffffffffu, suma, off);
+    sumb += __shfl_xor_sync(0xffffffffu, sumb, off);
+  }
+  la = fmaxf(suma, 1e-30f);
+  lb = fmaxf(sumb, 1e-30f);
+}
+
 // A CTA takes tiles b, b + gridDim.x, ...; in each, group i takes heads
 // i, i + GPC, ...: the CTA's groups read the heads of one tile at about the
-// same time, so the tile's rows leave DRAM whole.
-template <int TS, int D, int GPC, int NST>
+// same time, so the tile's rows leave DRAM whole. With PAD a tile is one
+// sequence of S < TS tokens (from token tile * S).
+template <int TS, int D, int GPC, int NST, bool PAD>
 __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
     packed_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out, int T, int S,
@@ -89,8 +140,8 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
   const int gtid = tid - gi * C::WG * 32;
   if (gi >= H) return;  // no head for this group (fewer heads than groups)
   const int nh = (H - 1 - gi) / GPC + 1;  // heads of this group in each tile
-  const int tiles = (T + TS - 1) / TS;
-  const int sh = __ffs(S) - 1;  // S is a power of two
+  const int tiles = PAD ? T / S : (T + TS - 1) / TS;
+  const int sh = __ffs(S) - 1;  // S is a power of two (unless PAD)
   bf16* ring = reinterpret_cast<bf16*>(smem_raw) + gi * NST * C::STAGE;
 
   auto group_sync = [&]() {
@@ -102,7 +153,7 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
   // the group's j-th unit: (first token, head), or false past the last tile
   auto unit = [&](int j, int& t0, int& h) {
     const int ti = j / nh, tile = blockIdx.x + ti * gridDim.x;
-    t0 = tile * TS;
+    t0 = tile * (PAD ? S : TS);
     h = gi + (j - ti * nh) * GPC;
     return tile < tiles;
   };
@@ -116,7 +167,7 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
       const int t = t0 + r;
       const bf16* base = m == 0 ? q : (m == 1 ? k : v);
       const long long ld = m == 0 ? q_ld : (m == 1 ? k_ld : v_ld);
-      const bool ok = t < T;
+      const bool ok = PAD ? r < S : t < T;
       cp_async16(dst + m * C::TILE + r * C::RS + c * 8,
                  base + (ok ? (long long)t * ld + (long long)h * D + c * 8 : 0), ok);
     }
@@ -146,13 +197,17 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
     const bf16* sk = sq + C::TILE;
     const bf16* sv = sk + C::TILE;
     const int ta = t0 + ra, tb = t0 + rb;
+    const bool va = PAD ? ra < S : ta < T, vb = PAD ? rb < S : tb < T;
 
     // scores: s[j] holds rows ra (0, 1) and rb (2, 3), keys 8j + 2tq + (0, 1)
     float s[C::NT][4];
     mma_abt<TS, D, C::RS>(s, sq, sk, wq * 16, lane);
     // softmax over each row's keys of its own sequence, in registers
     float la, lb;
-    softmax_rows<C::NT>(s, ra, rb, sh, tq, scale_log2, la, lb);
+    if (PAD)
+      softmax_rows_padded<C::NT>(s, S, tq, scale_log2, la, lb);
+    else
+      softmax_rows<C::NT>(s, ra, rb, sh, tq, scale_log2, la, lb);
     // P normalised, then cast: key tiles 2kk and 2kk + 1 form the A operand of key step kk
     uint32_t p[TS / 16][4];
 #pragma unroll
@@ -171,26 +226,26 @@ __global__ void __launch_bounds__(Cfg<TS, D, GPC, NST>::THREADS)
     for (int np = 0; np < C::NO / 2; ++np) {
       float o[2][4] = {};
       mma_ab_pair<TS, C::RS, false>(o, p, sv, 2 * np, lane);
-      store_pair(oa, ob, ta < T, tb < T, o[0], o[1], np * 16, tq, 1.f);
+      store_pair(oa, ob, va, vb, o[0], o[1], np * 16, tq, 1.f);
     }
     if (C::NO % 2) {
       float o[2][4] = {};
       mma_ab_pair<TS, C::RS, true>(o, p, sv, C::NO - 1, lane);
-      store_one(oa, ob, ta < T, tb < T, o[0], (C::NO - 1) * 8, tq, 1.f);
+      store_one(oa, ob, va, vb, o[0], (C::NO - 1) * 8, tq, 1.f);
     }
 
     group_sync();  // the stage is free for the next load
   }
 }
 
-template <int TS, int D, int GPC, int NST>
+template <int TS, int D, int GPC, int NST, bool PAD = false>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
            long long q_ld, long long k_ld, long long v_ld, long long o_ld, float scale,
            cudaStream_t stream) {
   using C = Cfg<TS, D, GPC, NST>;
   static int resident = 0;  // CTAs the card holds at once: the persistent grid's size
   if (!resident) {
-    auto kern = packed_attn_kernel<TS, D, GPC, NST>;
+    auto kern = packed_attn_kernel<TS, D, GPC, NST, PAD>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)C::SMEM);
     if (err == cudaSuccess)
@@ -206,9 +261,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
     resident = per_sm * sms;
   }
   const int T = B * S;
-  const int tiles = (T + TS - 1) / TS;
+  const int tiles = PAD ? B : (T + TS - 1) / TS;
   if (tiles == 0 || H == 0) return 0;
-  packed_attn_kernel<TS, D, GPC, NST><<<tiles < resident ? tiles : resident, C::THREADS, C::SMEM,
+  packed_attn_kernel<TS, D, GPC, NST, PAD><<<tiles < resident ? tiles : resident, C::THREADS, C::SMEM,
                                    stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), T, S, H, q_ld, k_ld, v_ld, o_ld, scale * 1.4426950408889634f);
@@ -237,11 +292,17 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 
 // q/k/v/out: (B, S, H*D) bf16 with token stride *_ld (elements, a multiple
 // of 8); S in {1, 2, 4, 8, 16, 32} (at S 1 the softmax is the constant 1:
-// out is v's bits); D in {40, 80, 160}.
+// out is v's bits) at D in {40, 80, 160}, or S in 17..31 padded to 32 at D
+// 64 (two-warp groups, two groups and three stages a CTA: 83 KB, two CTAs
+// an SM; not swept).
 extern "C" int packed_attn(const void* q, const void* k, const void* v, void* out, int B,
                            int S, int H, int D, long long q_ld, long long k_ld,
                            long long v_ld, long long o_ld, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return S > 16 && S < 32 ? launch<32, 64, 2, 3, true>(q, k, v, out, B, S, H, q_ld, k_ld,
+                                                         v_ld, o_ld, scale, s)
+                            : (int)cudaErrorInvalidValue;
   if (S == 1 || S == 2 || S == 4 || S == 8 || S == 16)
     return dispatch<16>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);
   if (S == 32) return dispatch<32>(q, k, v, out, B, S, H, D, q_ld, k_ld, v_ld, o_ld, scale, s);

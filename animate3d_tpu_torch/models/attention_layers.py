@@ -100,14 +100,26 @@ class TextCrossAttention(nn.Module):
 
 
 class AlphaBlender(nn.Module):
-    """Learned sigmoid mix of two streams (init 0 → 0.5/0.5)."""
+    """Learned sigmoid mix of two streams, alpha x_a + (1 - alpha) x_b,
+    alpha = sigmoid(mix_factor) (init ``mix``: 0 → 0.5 / 0.5), in f32. As
+    diffusers' video ``AlphaBlender``: where ``image_only`` (broadcast to
+    the streams, 1 on frames that are still images) is set alpha is 1
+    (``learned_with_images``), and ``switch``
+    (``switch_spatial_to_temporal_mix``) then takes 1 - alpha."""
 
-    def __init__(self):
+    def __init__(self, mix: float = 0.0, switch: bool = False):
         super().__init__()
-        self.mix_factor = nn.Parameter(torch.zeros(1))
+        self.mix = float(mix)  # the published initial mix, for a seeded build
+        self.mix_factor = nn.Parameter(torch.full((1,), self.mix))
+        self.switch = switch
 
-    def forward(self, x_a: torch.Tensor, x_b: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_a: torch.Tensor, x_b: torch.Tensor,
+                image_only: Optional[torch.Tensor] = None) -> torch.Tensor:
         alpha = torch.sigmoid(self.mix_factor.float())[0]
+        if image_only is not None:
+            alpha = torch.where(image_only.bool(), 1.0, alpha)
+        if self.switch:
+            alpha = 1.0 - alpha
         return (alpha * x_a.float() + (1.0 - alpha) * x_b.float()).to(x_a.dtype)
 
 

@@ -123,3 +123,50 @@ def freeinit_blend(diffused_latents: torch.Tensor, fresh_noise: torch.Tensor,
     n_freq = torch.fft.fftn(fresh_noise.to(torch.complex64), dim=dims)
     mixed = x_freq * lpf + n_freq * (1.0 - lpf)
     return torch.fft.ifftn(mixed, dim=dims).real.to(diffused_latents.dtype)
+
+
+@dataclass(frozen=True)
+class EulerEDMConfig:
+    """Stable Video Diffusion's ``scheduler/scheduler_config.json``:
+    diffusers' ``EulerDiscreteScheduler`` with Karras sigmas (rho 7) between
+    ``sigma_max`` and ``sigma_min``, continuous timesteps, v-prediction and
+    ``leading`` spacing (the only prediction and spacing the release uses)."""
+
+    sigma_min: float = 0.002
+    sigma_max: float = 700.0
+    rho: float = 7.0
+
+
+class EulerEDMScheduler:
+    """Euler steps under EDM preconditioning, with every per-step number a
+    host float (the sigmas are fixed by the step count), so a step needs no
+    host sync. ``sigmas`` are the Karras sigmas rounded to float32, as
+    diffusers keeps them, with 0 appended; the UNet's timestep input is
+    ``0.25 ln sigma``; the preconditioning ``c_in = 1 / sqrt(sigma^2 + 1)``,
+    ``c_skip = 1 / (sigma^2 + 1)``, ``c_out = -sigma / sqrt(sigma^2 + 1)``
+    (v-prediction); the step ``x + (x - D) / sigma * (sigma_next - sigma)``."""
+
+    def __init__(self, config: EulerEDMConfig = EulerEDMConfig(), num_inference_steps: int = 25):
+        self.config = config
+        ramp = np.linspace(0.0, 1.0, num_inference_steps)
+        lo, hi = config.sigma_min ** (1.0 / config.rho), config.sigma_max ** (1.0 / config.rho)
+        karras = (hi + ramp * (lo - hi)) ** config.rho
+        self.sigmas = [float(s) for s in np.float32(karras)] + [0.0]
+        self.timesteps = [(0.25 * torch.log(torch.tensor(s, dtype=torch.float32))).item()
+                          for s in self.sigmas[:-1]]
+        self.init_noise_sigma = (max(self.sigmas) ** 2 + 1.0) ** 0.5  # "leading" spacing
+
+    @staticmethod
+    def c_in(sigma: float) -> float:
+        return 1.0 / (sigma ** 2 + 1.0) ** 0.5
+
+    @staticmethod
+    def denoised(model_output: torch.Tensor, sample: torch.Tensor, sigma: float) -> torch.Tensor:
+        """D = c_skip x + c_out F (v-prediction)."""
+        return sample / (sigma ** 2 + 1.0) + model_output * (-sigma / (sigma ** 2 + 1.0) ** 0.5)
+
+    @staticmethod
+    def step(denoised: torch.Tensor, sample: torch.Tensor, sigma: float,
+             sigma_next: float) -> torch.Tensor:
+        """One Euler step from ``sigma`` to ``sigma_next``."""
+        return sample + (sample - denoised) / sigma * (sigma_next - sigma)

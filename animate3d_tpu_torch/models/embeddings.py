@@ -29,12 +29,13 @@ def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    """linear → silu → linear (diffusers TimestepEmbedding)."""
+    """linear → silu → linear (diffusers TimestepEmbedding; ``out_dim``, if
+    given, is the second linear's width, else ``dim_out``)."""
 
-    def __init__(self, in_dim: int, dim_out: int):
+    def __init__(self, in_dim: int, dim_out: int, out_dim: Optional[int] = None):
         super().__init__()
         self.linear_1 = Linear(in_dim, dim_out)
-        self.linear_2 = Linear(dim_out, dim_out)
+        self.linear_2 = Linear(dim_out, out_dim or dim_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(nn.functional.silu(self.linear_1(x)))

@@ -174,3 +174,41 @@ def encode_text(prompt: str, negative_prompt: str, n_views: int, text_model,
         out = text_model(torch.as_tensor(tok([prompt, negative_prompt]), dtype=torch.long,
                                          device=dev)).float()
     return out[0:1].repeat(n_views, 1, 1), out[1:2].repeat(n_views, 1, 1)
+
+
+def build_svd_models(model_size: str = "full", device=None, seed: int = 0,
+                     dtype: Optional[torch.dtype] = None) -> tuple:
+    """(unet, vae, vision_model) of Stable Video Diffusion XT at ``full``
+    (the released configs) or ``tiny`` scale on ``device`` (default
+    ``cuda``), seeded as :func:`build_models` seeds the MV-VDM, every
+    blender's mix then at its published initial value (0.5 in the UNet, 0
+    in the decoder). The UNet samples in ``dtype`` (default bf16 on CUDA,
+    float32 on the CPU); the VAE and the vision tower are float32. All in
+    eval mode, frozen."""
+    from animate3d_tpu_torch.models.attention_layers import AlphaBlender
+    from animate3d_tpu_torch.models.unet_svd import SVDUNet, SVDUNetConfig
+    from animate3d_tpu_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
+
+    dev = resolve_device(device)
+    if model_size == "tiny":
+        ucfg = SVDUNetConfig.tiny()
+        vcfg = VAEConfig(block_out_channels=(32, 64), norm_num_groups=32)
+        icfg = CLIPVisionConfig.tiny(projection_dim=ucfg.cross_attention_dim)
+    elif model_size == "full":
+        ucfg, vcfg, icfg = SVDUNetConfig(), VAEConfig(), CLIPVisionConfig()
+    else:
+        raise ValueError(f"model_size must be 'full' or 'tiny', got {model_size!r}")
+    with dev:
+        unet, vae = SVDUNet(ucfg), AutoencoderKLTemporalDecoder(vcfg)
+        vision = CLIPVisionModelWithProjection(icfg)
+    for i, m in enumerate((unet, vae, vision)):
+        init_params(m, seed + i)
+        for blender in m.modules():
+            if isinstance(blender, AlphaBlender):
+                with torch.no_grad():
+                    blender.mix_factor.fill_(blender.mix)
+        m.eval().requires_grad_(False)
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    unet.to(dtype)
+    return unet, vae, vision

@@ -43,6 +43,14 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
+class Conv3d(nn.Conv3d):
+    """The video models' temporal convolutions (kernel (3, 1, 1) over the
+    frames of (B, C, F, H, W)), weights cast at use as :class:`Conv2d`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
+
+
 class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype == x.dtype:

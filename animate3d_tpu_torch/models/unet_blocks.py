@@ -37,12 +37,16 @@ class MotionAttnConfig:
 
 
 class ResnetBlock2D(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, temb_channels: int):
+    """diffusers ResnetBlock2D; ``eps`` is the norms' (1e-5 in the MV-VDM,
+    1e-5 / 1e-6 by block in the SVD UNet)."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
+                 eps: float = 1e-5):
         super().__init__()
-        self.norm1 = GroupNorm(32, in_channels, eps=1e-5)
+        self.norm1 = GroupNorm(32, in_channels, eps=eps)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = Linear(temb_channels, out_channels)
-        self.norm2 = GroupNorm(32, out_channels, eps=1e-5)
+        self.norm2 = GroupNorm(32, out_channels, eps=eps)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = Conv2d(in_channels, out_channels, 1)

@@ -172,12 +172,20 @@ def _packed_bwd_plain(q, k, v, g, num_heads: int, scale: float):
 
 
 FLASH_HEAD_DIMS = (40, 80, 160)  # SD1.5's head widths at 320, 640, 1280 channels
+FLASH_FWD_HEAD_DIMS = FLASH_HEAD_DIMS + (64,)  # kernel A alone: SVD's 64-wide heads
 
 
 def flash_kernel_takes(head_dim: int) -> bool:
     """Whether kernels A and D take heads ``head_dim`` wide: the three SD1.5
-    widths, the only ones a flash site of the UNet has."""
+    widths, the only ones a flash site of the MV-VDM UNet has."""
     return head_dim in FLASH_HEAD_DIMS
+
+
+def flash_fwd_takes(head_dim: int) -> bool:
+    """Whether kernel A (the forward alone) takes heads ``head_dim`` wide:
+    the SD1.5 widths and the 64-wide heads of the SVD UNet, which only
+    samples (no backward kernel D at 64)."""
+    return head_dim in FLASH_FWD_HEAD_DIMS
 
 
 def _check_merged(name: str, x: torch.Tensor, head_dim: int, device) -> None:
@@ -263,7 +271,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _flash_plain(q, k, v, num_heads, scale, kv_group)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_merged(f"flash_attention {name}", x, d, q.device)
-    if not (flash_kernel_takes(d) and sk > 0) or c != num_heads * d:
+    if not (flash_fwd_takes(d) and sk > 0) or c != num_heads * d:
         raise ValueError(f"flash_attention: unsupported D={d}, Sk={sk}")
     out = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, num_heads, sq), dtype=torch.float32, device=q.device)
@@ -348,6 +356,16 @@ def packed_kernel_takes(seq: int, head_dim: int) -> bool:
     return seq in PACKED_SEQ and head_dim in PACKED_HEAD_DIMS + (160,)
 
 
+PADDED_SEQ_HEAD_DIMS = (64,)  # kernel B's padded sequences: SVD's 64-wide heads
+
+
+def padded_seq(seq: int, head_dim: int) -> bool:
+    """Whether kernel B (forward only) takes sequences of ``seq`` tokens by
+    padding each to one 32-row tile with its keys past ``seq`` masked: the
+    lengths 17-31 at 64-wide heads (SVD's 25 frames)."""
+    return 16 < seq < 32 and head_dim in PADDED_SEQ_HEAD_DIMS
+
+
 def check_packed_shape(name: str, seq: int, channels: int, num_heads: int) -> None:
     """Raise where kernels B and E do not take (S, D): the (S, D) of
     :func:`packed_kernel_takes`, channels a whole number of heads."""
@@ -368,8 +386,11 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.shape == k.shape == v.shape):
         raise ValueError("packed_attention: q/k/v shapes differ")
     if q.device.type == "cpu":
+        if padded_seq(s, d):
+            return packed_padded_attention(q, k, v, num_heads, scale)
         return packed_small_attention(q, k, v, num_heads, scale)
-    check_packed_shape("packed_attention", s, c, num_heads)
+    if not padded_seq(s, d):
+        check_packed_shape("packed_attention", s, c, num_heads)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_merged(f"packed_attention {name}", x, d, q.device)
         if x.stride(0) != s * x.stride(1):
@@ -381,7 +402,26 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out.stride(1), scale, _build.stream_ptr(q.device))
     _build.check("packed_attn", rc)
     _build.LAUNCHES[counter, (b, s, c)] += 1
+    if padded_seq(s, d):
+        _build.LAUNCHES["packed_seq_padded", f"{s}->32"] += 1
     return out
+
+
+def packed_padded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_heads: int, scale: float) -> torch.Tensor:
+    """Plain version of kernel B's padded sequences, with its layout and
+    numerics: each (B, S, H*D) sequence zero-padded to 32 rows, f32 scores
+    scaled after the dot, keys S..31 at -1e30 (exactly 0 after the exp), P
+    normalised before its cast, PV, the S query rows kept."""
+    b, s, c = q.shape
+    pad = 32 - s
+    qh, kh, vh = (_split_heads(torch.nn.functional.pad(x, (0, 0, 0, pad)), num_heads)
+                  for x in (q, k, v))
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    keep = torch.arange(32, device=q.device) < s
+    logits = logits + torch.where(keep, 0.0, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return _merge_heads(torch.matmul(probs, vh))[:, :s]
 
 
 def packed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -615,5 +655,47 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_group > 1:
         k = k.repeat_interleave(kv_group, dim=0)
         v = v.repeat_interleave(kv_group, dim=0)
+    qh, kh, vh = (_split_heads(x, num_heads) for x in (q, k, v))
+    return _merge_heads(attention_xla(qh, kh, vh, scale))
+
+
+def one_key_attention(v: torch.Tensor) -> torch.Tensor:
+    """Attention of any number of queries to a single key, v (B, 1, C) →
+    (B, 1, C): the softmax over one key is exactly 1, so every query's
+    output is v, bit for bit what the full attention computes; returned
+    once a batch, for the caller to broadcast over its queries. q and k do
+    not enter."""
+    return v
+
+
+def video_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """The Stable Video Diffusion UNet's route for merged-head attention, q
+    (B, S, C), k / v (B, Sk, C); the JAX package has no such model, so this
+    is not the TPU's rule:
+
+    * self-attention over a short sequence (the temporal blocks' 25
+      frames): kernel B, which pads sequences of 17-31 tokens to 32 and
+      masks the padded keys;
+    * any other (the spatial blocks' 9,216 / 2,304 / 576 / 144 tokens a
+      frame): kernel A at the widths of :func:`flash_fwd_takes`.
+
+    CPU tensors and ``routing.plain_ops()`` take the kernels' plain
+    versions (A's in batch slices that bound its f32 scores); with the
+    kernels on, a head width A does not take raises."""
+    b, s, c = q.shape
+    d = c // num_heads
+    scale = d ** -0.5
+    kernels = routing.kernels_enabled(q.device)
+    if s <= 32 and q.shape == k.shape:
+        if kernels:
+            return packed_attention(q, k, v, num_heads, scale)
+        if padded_seq(s, d):
+            return packed_padded_attention(q, k, v, num_heads, scale)
+        return packed_small_attention(q, k, v, num_heads, scale)
+    if kernels:
+        return flash_attention(q, k, v, num_heads, scale)[0]
+    if q.device.type == "cuda":
+        return _flash_plain(q, k, v, num_heads, scale, 1)[0]
     qh, kh, vh = (_split_heads(x, num_heads) for x in (q, k, v))
     return _merge_heads(attention_xla(qh, kh, vh, scale))

@@ -1,0 +1,4 @@
+"""Device idle share of the traced window (profiler: the union of device
+activity against the window's length)."""
+
+from benchmark.readers import idle_share as read  # noqa: F401

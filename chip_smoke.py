@@ -102,7 +102,22 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
    ``cmd.txt``, ``code_snapshot.zip``, TB events read back); and
    ``profile_trace`` around one full-width sampling denoise step. Data and
    sequence parallelism at more than one rank are held by the CPU tests
-   (``tests/test_torch_parallel.py``): this script needs one card.
+   (``tests/test_torch_parallel.py``): this script needs one card;
+14. Stable Video Diffusion XT: ``video_attention`` (the SVD UNet's route)
+   at the SVD shapes on the CFG batch (2 x 25 frames at 72x128 latents)
+   against the kernels' plain versions — kernel A at 64-wide heads over
+   9,216 / 2,304 / 576 / 144 tokens against ``_flash_plain``, kernel B on
+   25-frame sequences padded to 32 against ``packed_padded_attention`` and
+   unpadded attention (and the padded keys left unmasked shown to move
+   it), kernel C at the SVD M's — with kernel / plain / library times and
+   the bound; then one seeded full-size SVD UNet call with the launch
+   counters zeroed just before and read just after (exactly
+   PER_SVD_FORWARD, each of B's launches padded), against the same call
+   on the plain versions.
+
+    python3 chip_smoke.py --svd
+
+runs phases 1 and 14 alone.
 
 The summary lines give the step times (refine's too) with kernel B's,
 C's, E's, G's and H's share of the profiled device time, each beside the
@@ -170,6 +185,14 @@ PER_FIELDS_STEP = _per(composite_fields_fwd=1, composite_fields_bwd=1)
 # attention_backend("packed_flash"), forward and backward: kernel B as F's
 # route, then E, at each
 PER_PACKED_FLASH = _per(packed_temporal=3, packed_attn_bwd=3)
+# per SVD-XT UNet call on the CFG batch (2 x 25 frames of a 72x128 latent):
+# 16 transformers (5 a level at L0-L2 over the down and up blocks, the mid
+# block's 1), each one spatial self-attention on kernel A at 64-wide heads,
+# one temporal self-attention on kernel B (25 frames padded to 32) and three
+# GEGLU feed-forwards (spatial ff, temporal ff_in and ff); the one-token
+# cross-attentions are the value projection and launch nothing
+PER_SVD_FORWARD = _per(flash_fwd=16, packed_attn=16, geglu=48)
+SVD_PADDED = ("packed_seq_padded", "25->32")
 SOURCES = {
     "flash_fwd": ("animate3d_tpu_torch/csrc/flash_fwd.cu",
                   "animate3d_tpu/ops/attention.py:234"),
@@ -2567,6 +2590,176 @@ def dist_phase(tmp: str, ply: str, frames: str) -> dict:
                 decode_ms=decode_ms, launcher_s=launcher_wall, b_wall_s=b_wall)
 
 
+def _svd_flash_case(label, b, s, c, heads, gen):
+    """Kernel A at 64-wide heads through ``video_attention`` against
+    ``_flash_plain`` (:func:`_agree`'s tolerance)."""
+    from animate3d_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    d = c // heads
+    scale = d ** -0.5
+    route = lambda: A.video_attention(q, k, v, heads)
+    out = route()
+    ref = A._flash_plain(q, k, v, heads, scale, 1)[0]
+    torch.cuda.synchronize()
+    err, tol, rel, ok = _agree(out, ref)
+    ms = _time_ms(route, 10)
+    plain_ms = _time_ms(lambda: A._flash_plain(q, k, v, heads, scale, 1), 2)
+    qh, kh, vh = (x.reshape(b, s, heads, d).transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, scale=scale), 10)
+    nbytes = 2.0 * 4 * b * s * c + 4.0 * b * heads * s
+    bound, by, term = _bound_ms(4.0 * b * heads * s * s * d, nbytes, ex2=1.0 * b * heads * s * s)
+    return dict(name="flash_fwd", shape=label, keys=[("flash_fwd", (b, s, s, c, 1))],
+                max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term)
+
+
+def _svd_packed_case(label, b, c, heads, gen, s: int = 25):
+    """Kernel B on ``s``-frame sequences padded to 32 through
+    ``video_attention`` against ``packed_padded_attention`` (its layout and
+    numerics) and unpadded attention, both at :func:`_agree`'s tolerance;
+    the padded keys left in the softmax (zero keys and values) must move
+    the output by more than 5% relative L2, or the check could not see a
+    missing mask."""
+    from animate3d_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn((b, s, c), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    d = c // heads
+    scale = d ** -0.5
+    route = lambda: A.video_attention(q, k, v, heads)
+    out = route()
+    ref = A.packed_padded_attention(q, k, v, heads, scale)
+    unpadded = A.packed_small_attention(q, k, v, heads, scale)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 32 - s))
+    unmasked = A._merge_heads(A.attention_xla(
+        *(A._split_heads(x, heads) for x in (q, pad(k), pad(v))), scale))
+    torch.cuda.synchronize()
+    err, tol, rel, ok = _agree(out, ref)
+    ok_unpadded = _agree(out, unpadded)[3]
+    unmasked_rel = float((unmasked.float() - ref.float()).norm() / ref.float().norm())
+    ok = ok and ok_unpadded and unmasked_rel > 0.05
+    ms = _time_ms(route, 100)
+    graph_ms = _graph_ms(route)
+    plain_ms = _time_ms(lambda: A.packed_padded_attention(q, k, v, heads, scale), 5)
+    qh, kh, vh = (x.reshape(b, s, heads, d).transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, scale=scale), 20)
+    bound, by, term = _bound_ms(4.0 * b * heads * s * s * d, 2.0 * 4 * b * s * c)
+    return dict(name="packed_attn", shape=label, keys=[("packed_attn", (b, s, c))],
+                max_abs_err=err, tol=tol, rel=rel, ok=ok, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, term=term, graph_ms=graph_ms,
+                unpadded_ok=ok_unpadded, unmasked_rel=unmasked_rel)
+
+
+def svd_phase() -> dict:
+    """Phase 14: the SVD-XT shapes of kernels A, B and C against their plain
+    versions, then one full-size SVD UNet call on the CFG batch through the
+    kernels (exactly PER_SVD_FORWARD launches, each of B's padded) against
+    the same call on the plain versions. Tolerance of the call: 5e-2
+    relative L2, as :func:`reference_phase`'s (bf16 sums in another order
+    over 16 transformers and 22 spatio-temporal ResNet blocks)."""
+    from animate3d_tpu_torch.models.factory import build_svd_models
+    from animate3d_tpu_torch.ops import _build, routing
+    from animate3d_tpu_torch.pipelines.svd_sampler import SVDSampler, SVDSamplerConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [
+        _svd_flash_case("SVD L0 (50, 9216, 320) h5", 50, 9216, 320, 5, gen),
+        _svd_flash_case("SVD L1 (50, 2304, 640) h10", 50, 2304, 640, 10, gen),
+        _svd_flash_case("SVD L2 (50, 576, 1280) h20", 50, 576, 1280, 20, gen),
+        _svd_flash_case("SVD L3 (50, 144, 1280) h20", 50, 144, 1280, 20, gen),
+        _svd_packed_case("SVD L0 S25 (18432, 25, 320) h5", 18432, 320, 5, gen),
+        _svd_packed_case("SVD L1 S25 (4608, 25, 640) h10", 4608, 640, 10, gen),
+        _svd_packed_case("SVD L2 S25 (1152, 25, 1280) h20", 1152, 1280, 20, gen),
+        _svd_packed_case("SVD L3 S25 (288, 25, 1280) h20", 288, 1280, 20, gen),
+        _geglu_case("SVD L0 M=460800 C=320 I=1280", 460800, 320, 1280, gen),
+        _geglu_case("SVD L1 M=115200 C=640 I=2560", 115200, 640, 2560, gen),
+        _geglu_case("SVD L2 M=28800 C=1280 I=5120", 28800, 1280, 5120, gen),
+        _geglu_case("SVD L3 M=7200 C=1280 I=5120", 7200, 1280, 5120, gen),
+    ]
+    print(f"[svd-kernel] card {_smi()}")
+    for r in rows:
+        extra = f" graph_ms {r['graph_ms']:.4f}" if "graph_ms" in r else ""
+        if "unmasked_rel" in r:
+            extra += (f" unpadded ok {r['unpadded_ok']} unmasked rel L2 "
+                      f"{r['unmasked_rel']:.3e} (must exceed 5e-2)")
+        print(f"[svd-kernel] {r['name']:<12} {r['shape']:<34} max|d| {r['max_abs_err']:.3e} "
+              f"(tol {r['tol']:.3e}) rel L2 {r['rel']:.3e} (tol {REL_L2_TOL:.0e}){extra} "
+              f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+              f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}: "
+              f"{r['term']}) {'ok' if r['ok'] else 'FAIL'}")
+    torch.cuda.empty_cache()
+
+    unet, vae, vision = build_svd_models("full", "cuda", seed=0)
+    sampler = SVDSampler(unet, vae, vision, SVDSamplerConfig())
+    x = torch.randn((2, 25, 8, 72, 128), generator=gen, device="cuda")
+    emb = torch.randn((2, 1, 1024), generator=gen, device="cuda")
+    ids = sampler.added_time_ids(1)
+    with torch.inference_mode():
+        unet(x, 0.5, emb, ids)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out_k = unet(x, 0.5, emb, ids).float()
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        kernel_counts = _build.launch_totals()
+        per_shape = {k: n for k, n in _build.LAUNCHES.items() if k[0] in COUNTERS}
+        padded = _build.LAUNCHES[SVD_PADDED]
+        _build.reset_launches()
+        with routing.plain_ops():
+            out_p = unet(x, 0.5, emb, ids).float()
+        torch.cuda.synchronize()
+        plain_counts = _build.launch_totals()
+    rel = float((out_k - out_p).norm() / out_p.norm())
+    counts_ok = (kernel_counts == PER_SVD_FORWARD and padded == PER_SVD_FORWARD["packed_attn"]
+                 and not any(plain_counts.values()))
+    ok = (all(r["ok"] for r in rows) and rel <= 5e-2 and bool(torch.isfinite(out_k).all())
+          and counts_ok)
+    print(f"[svd] full-size SVD UNet call on the CFG batch (2 x 25 frames, 72x128), kernels "
+          f"vs plain ops: relative L2 {rel:.3e} (tol 5e-2); {call_s:.4f} s through the "
+          f"kernels; launches {kernel_counts} (expected {PER_SVD_FORWARD}), "
+          f"{SVD_PADDED} {padded} (expected {PER_SVD_FORWARD['packed_attn']}), through the "
+          f"plain ops {plain_counts}; card {_smi()}")
+    del unet, vae, vision, sampler, out_k, out_p
+    torch.cuda.empty_cache()
+    return dict(ok=ok, rows=rows, per_shape=per_shape, rel=rel, call_s=call_s)
+
+
+def _kernel_json(rows: list, launches) -> str:
+    return json.dumps({"kernels": [
+        dict(name=f"{r['name']} {r['shape']}", route="cuda", source=SOURCES[r["name"]][0],
+             replaces=SOURCES[r["name"]][1],
+             launches=sum(launches[key] for key in r["keys"]),
+             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
+        for r in rows]})
+
+
+def svd_main() -> int:
+    """Phases 1 and 14 alone (``--svd``)."""
+    if not torch.cuda.is_available():
+        return _fail("torch.cuda.is_available() is False")
+    env_phase()
+    svd = svd_phase()
+    checked = {key for r in svd["rows"] for key in r["keys"]}
+    missing = set(svd["per_shape"]) - checked
+    if missing:
+        return _fail(f"svd-path kernel shapes not checked: {missing}")
+    if not svd["ok"]:
+        return _fail("the SVD shapes or the SVD UNet call failed their checks")
+    print(_kernel_json(svd["rows"], collections.Counter(svd["per_shape"])))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
@@ -2698,6 +2891,13 @@ def main() -> int:
                          "--gradio, profile_trace) failed its checks")
         if unchecked("dist-train", dist):
             return 1
+    svd = svd_phase()
+    rows += svd["rows"]
+    checked |= {key for r in svd["rows"] for key in r["keys"]}
+    if not svd["ok"]:
+        return _fail("the SVD shapes or the SVD UNet call failed their checks")
+    if unchecked("svd", svd):
+        return 1
     print(f"[summary] seconds per denoise step (CFG pair, after one warm-up step): "
           f"{e2e['step_s']:.4f}; peak memory {e2e['peak_gb']:.2f} GiB; card {env['smi']}")
     print(f"[summary] seconds per denoise step at 512x512: {e2e512['step_s']:.4f}; peak "
@@ -2756,15 +2956,11 @@ def main() -> int:
           f"world 1, train.yaml on 48-frame clips, zero_sharded_optimizer): "
           f"{dist['step_s']:.4f}; peak memory {dist['peak_gb']:.2f} GiB; one item's read (4 "
           f"views x 16 frames at 256^2) {dist['decode_ms']:.2f} ms; card {env['smi']}")
+    print(f"[summary] SVD-XT UNet call on the CFG batch (2 x 25 frames at 576x1024): "
+          f"{svd['call_s']:.4f} s; kernels vs plain ops {svd['rel']:.3e}; card {env['smi']}")
     launches = sum((collections.Counter(r["per_shape"]) for r in runs.values()),
                    collections.Counter())
-    kernels = [dict(name=f"{r['name']} {r['shape']}", route="cuda",
-                    source=SOURCES[r["name"]][0], replaces=SOURCES[r["name"]][1],
-                    launches=sum(launches[key] for key in r["keys"]),
-                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"]) for r in rows]
-    print(json.dumps({"kernels": kernels}))
+    print(_kernel_json(rows, launches))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -2774,4 +2970,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-rank"]:
         sys.exit(_train_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--svd"]:
+        sys.exit(svd_main())
     sys.exit(main())
