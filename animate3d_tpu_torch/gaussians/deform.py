@@ -9,9 +9,10 @@ Euler) and translation (sigmoid → [-1, 1]) from the mean feature.
 
 ``deform_frames`` takes the time-factorised sampler, except with
 ``use_global_trans``, where it computes :meth:`deform` for every frame
-(:meth:`deform_many`: the JAX package's ``vmap`` of ``deform``). The
-recon config sets ``use_global_trans: true``, so that branch is the one
-stage-1 reconstruction runs.
+(:meth:`deform_many`: the JAX package's ``vmap`` of ``deform``, its
+features from ``kplanes.sample_frames``: kernel I on the card). The recon
+config sets ``use_global_trans: true``, so that branch is the one stage-1
+reconstruction runs.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from torch import nn
 
 from animate3d_tpu_torch.gaussians.kplanes import (
     COO_COMBS,
-    interpolate_ms_features,
     interpolate_ms_features_frames,
     plane_shapes,
+    sample_frames,
 )
 from animate3d_tpu_torch.gaussians.state import GaussianState
 from animate3d_tpu_torch.utils import trace
@@ -95,8 +96,7 @@ class DeformationField(nn.Module):
     def features(self, xyz: torch.Tensor, timestamp) -> torch.Tensor:
         """(N, 3) positions + scalar t in [-1, 1] → (N, F) features."""
         t = torch.as_tensor(timestamp, dtype=xyz.dtype, device=xyz.device)
-        return interpolate_ms_features(torch.cat([xyz, t.expand(xyz.shape[0], 1)], dim=-1),
-                                       self.grids)
+        return sample_frames(xyz, t.reshape(1), self.grids)[0]
 
     def _displace(self, xyz, rot, scaling, feats, deform_scales):
         """The deformation from features; leading frame axis optional."""
@@ -123,10 +123,7 @@ class DeformationField(nn.Module):
     def deform_many(self, state: GaussianState, ts: torch.Tensor, deform_scales: bool = False):
         """:meth:`deform` at each of the F times ``ts``, with a frame axis
         written out: (means (F, N, 3), rotations (F, N, 4), scales (F, N, 3))."""
-        f, n = ts.shape[0], state.xyz.shape[0]
-        pts = torch.cat([state.xyz.expand(f, n, 3),
-                         ts.to(state.xyz.dtype)[:, None, None].expand(f, n, 1)], dim=-1)
-        feats = interpolate_ms_features(pts.reshape(f * n, 4), self.grids).reshape(f, n, -1)
+        feats = sample_frames(state.xyz, ts, self.grids)
         return self._displace(state.xyz, state.rotation, state.scaling, feats, deform_scales)
 
     @trace.spanned("deform.frames")

@@ -7,7 +7,9 @@ Per scale, one (C, H, W) plane for each of the six 2-combinations of
 concatenated across scales. :func:`grid_sample_2d` reproduces the JAX
 package's bilinear gather (not ``F.grid_sample``);
 :func:`interpolate_ms_features_frames` is its time-factorised form over all
-frames at once (dense axis-weight contractions).
+frames at once (dense axis-weight contractions). :func:`sample_frames` is
+:func:`interpolate_ms_features` at every frame: on the card, kernel I
+(``ops/kplanes.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from animate3d_tpu_torch.ops import kplanes as kernel_i
+from animate3d_tpu_torch.ops import routing
 from animate3d_tpu_torch.utils import trace
 
 COO_COMBS: Tuple[Tuple[int, int], ...] = tuple(itertools.combinations(range(4), 2))
@@ -50,6 +54,21 @@ def interpolate_ms_features(pts: torch.Tensor,
             interp = feat if interp is None else interp * feat
         outs.append(interp)
     return torch.cat(outs, dim=-1)
+
+
+def sample_frames(xyz: torch.Tensor, ts: torch.Tensor,
+                  grids: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+    """(F, N, C · n_scales): :func:`interpolate_ms_features` at the points
+    ``cat(xyz, t)`` for each of the F times ``ts``. CPU tensors (and the
+    card inside ``routing.plain_ops``) take that gather; CUDA tensors take
+    kernel I, which gives no gradient to ``xyz`` or ``ts``."""
+    ts = ts.to(xyz.dtype)
+    if routing.kernels_enabled(xyz.device):
+        with trace.span("kplanes.sample"):
+            return kernel_i.sample_frames(xyz, ts, grids)
+    f, n = ts.shape[0], xyz.shape[0]
+    pts = torch.cat([xyz.expand(f, n, 3), ts[:, None, None].expand(f, n, 1)], dim=-1)
+    return interpolate_ms_features(pts.reshape(f * n, 4), grids).reshape(f, n, -1)
 
 
 def axis_weights(coord: torch.Tensor, reso: int) -> torch.Tensor:

@@ -39,10 +39,11 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd", "packed_attn_bwd",
-           "composite_coarse", "composite_fields")
+           "composite_coarse", "composite_fields", "kplanes")
 COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
             "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd",
-            "composite_fields_fwd", "composite_fields_bwd", "packed_temporal")
+            "composite_fields_fwd", "composite_fields_bwd", "packed_temporal",
+            "kplanes_fwd", "kplanes_bwd")
 
 LAUNCHES: "collections.Counter[tuple]" = trace.COUNTERS
 

@@ -117,7 +117,20 @@ Phases, in order; any failure exits non-zero before the ``ok`` line:
 
     python3 chip_smoke.py --svd
 
-runs phases 1 and 14 alone.
+runs phases 1 and 14 alone;
+
+15. K-planes: kernel I (``csrc/kplanes.cu``) forward and backward against
+   the plain gather at every shape the recon, refine, eval and mesh paths
+   give it (20,000 points, both scales, 16 channels, F 1 to 16), with
+   kernel / plain times and the bound; the recon field's ``deform_many``
+   forward and backward under torch.profiler (no indexing kernel left); a
+   gradient of the points and time rows beyond a block's shared memory
+   refused.
+
+    python3 chip_smoke.py --kplanes
+
+runs phases 1 and 15 alone (phase 15 also runs in the full order, after
+phase 2).
 
 The summary lines give the step times (refine's too) with kernel B's,
 C's, E's, G's and H's share of the profiled device time, each beside the
@@ -148,7 +161,8 @@ PEAK_EX2 = 3.9e12  # H100 SXM SFU: 16 ex2 a clock an SM x 132 SMs x 1.83 GHz
 
 COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
             "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd",
-            "composite_fields_fwd", "composite_fields_bwd", "packed_temporal")
+            "composite_fields_fwd", "composite_fields_bwd", "packed_temporal",
+            "kplanes_fwd", "kplanes_bwd")
 
 
 def _per(**counts) -> dict:
@@ -177,9 +191,13 @@ PER_TRAIN_STEP = _per(flash_fwd=40, packed_attn=40, geglu=74, flash_bwd_dq=19,
                       flash_bwd_dkv=18, packed_attn_bwd=20)
 # per recon step: the step's renders (all views x its frames) are one batch
 # of the rasterizer, so kernel H (above 64^2) or G (64^2 and below) runs
-# once forward and once backward
-PER_RECON_STEP = _per(composite_coarse_fwd=1, composite_coarse_bwd=1)
-PER_FIELDS_STEP = _per(composite_fields_fwd=1, composite_fields_bwd=1)
+# once forward and once backward; the deformation of the step's frames is
+# one call of kernel I each way. Every render call outside the steps (the
+# test passes) deforms its frames once: one more kplanes_fwd
+PER_RECON_STEP = _per(composite_coarse_fwd=1, composite_coarse_bwd=1, kplanes_fwd=1,
+                      kplanes_bwd=1)
+PER_FIELDS_STEP = _per(composite_fields_fwd=1, composite_fields_bwd=1, kplanes_fwd=1,
+                       kplanes_bwd=1)
 # one motion-module temporal attention at L0 (40-wide heads), one at L2
 # (160-wide) and one of a 32-frame clip at L2 under
 # attention_backend("packed_flash"), forward and backward: kernel B as F's
@@ -214,6 +232,11 @@ SOURCES = {
                              "animate3d_tpu/ops/rasterize_pallas.py:161"),
     "packed_temporal": ("animate3d_tpu_torch/csrc/packed_attn.cu",
                         "animate3d_tpu/ops/attention.py:84"),
+    # kernel I replaces no Pallas kernel: the JAX package gathers with jnp
+    "kplanes_fwd": ("animate3d_tpu_torch/csrc/kplanes.cu",
+                    "none (animate3d_tpu/gaussians/kplanes.py: jnp gathers)"),
+    "kplanes_bwd": ("animate3d_tpu_torch/csrc/kplanes.cu",
+                    "none (animate3d_tpu/gaussians/kplanes.py: jnp gathers)"),
 }
 
 
@@ -1034,9 +1057,10 @@ REFINE_RES, REFINE_STEPS = 1024, 3
 # forced flash takes the sites whose Sk is a multiple of 512, the ones auto
 # takes at this batch, and still packs the temporal ones); kernel H runs one
 # launch each way for the 8 recon renders at 1024^2 and one each way for the
-# 64 SDS renders at 256^2
+# 64 SDS renders at 256^2, and kernel I one each way for the deformation of
+# each of the two batches
 PER_REFINE_STEP = _per(flash_fwd=40, packed_attn=20, geglu=37, composite_coarse_fwd=2,
-                       composite_coarse_bwd=2)
+                       composite_coarse_bwd=2, kplanes_fwd=2, kplanes_bwd=2)
 # f32 operations per (pixel, candidate) pair that H's and G's functions
 # need: evaluating a candidate's alpha (offsets, conic form, exp, gates)
 # takes 14; a live alpha adds 12 in the forward (weight, 4 channel sums,
@@ -1549,6 +1573,7 @@ def recon_phase(tmp: str, ply: str, frames: str, res: int, eval_res: int,
     expected = {k: n * RECON_STEPS for k, n in per_step.items()}
     fwd_key = next(k for k, n in per_step.items() if n and k.endswith("_fwd"))
     expected[fwd_key] += 1  # the test pass: 64 renders in one launch
+    expected["kplanes_fwd"] += 1  # and their deformation
     trial = res_["trial_dir"]
     metrics = res_["metrics"]
     images = sorted(os.listdir(os.path.join(trial, "save", "images")))
@@ -1751,7 +1776,7 @@ def eval_phase(tmp: str, ply: str, frames: str, trial: str) -> dict:
     peak_cli = torch.cuda.max_memory_allocated() / 2 ** 30
     renders = TESTSET_VIEWS * RECON_FRAMES
     per_call = _PLANE_ELEMS // ((TESTSET_RES // 16) ** 2 * 8 * 256)
-    expected = _per(composite_coarse_fwd=-(-renders // per_call))
+    expected = _per(composite_coarse_fwd=-(-renders // per_call), kplanes_fwd=1)
     save = os.path.join(res["trial_dir"], "save")
     images = os.listdir(os.path.join(save, "images"))
     with Image.open(os.path.join(save, "images", "0.png")) as im:
@@ -1787,7 +1812,7 @@ def eval_phase(tmp: str, ply: str, frames: str, trial: str) -> dict:
 
     base = ["--config", RECON_YAML, *_recon_args(tmp, ply, frames, RECON_RES, RECON_EVAL)]
     res, wall_v, totals_v, shape_v = _cli_launches(base[:2] + ["--validate"] + base[2:])
-    ok_val = (totals_v == _per(composite_coarse_fwd=1) and res["rgb"].shape ==
+    ok_val = (totals_v == _per(composite_coarse_fwd=1, kplanes_fwd=1) and res["rgb"].shape ==
               (ORBIT_FRAMES, RECON_EVAL, RECON_EVAL, 3) and os.path.exists(res["video"])
               and os.path.exists(res["gif"]) and np.isfinite(res["rgb"]).all())
     print(f"[eval] --validate: {res['rgb'].shape[0]}-frame orbit at {RECON_EVAL}^2 in "
@@ -1797,7 +1822,8 @@ def eval_phase(tmp: str, ply: str, frames: str, trial: str) -> dict:
     res, wall_e, totals_e, shape_e = _cli_launches(base[:2] + ["--export"] + base[2:])
     trajs = os.listdir(os.path.join(res["trial_dir"], "save", "gaussian_trajectory"))
     report = res["report"]
-    ok_exp = (totals_e == _per(composite_coarse_fwd=1) and len(trajs) == RECON_FRAMES
+    ok_exp = (totals_e == _per(composite_coarse_fwd=1, kplanes_fwd=1)
+              and len(trajs) == RECON_FRAMES
               and report is not None and np.isfinite([report["psnr"], report["ssim"]]).all())
     print(f"[eval] --export: {len(trajs)} trajectory files, four-view test in {wall_e:.2f} s, "
           f"report PSNR {report['psnr']} dB SSIM {report['ssim']} (LPIPS "
@@ -1879,6 +1905,7 @@ def refine_phase(tmp: str, ply: str, frames: str, trial: str, root: str) -> dict
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {k: n * REFINE_STEPS for k, n in PER_REFINE_STEP.items()}
     expected["composite_coarse_fwd"] += 2  # the testset pass: 192 renders in 2 calls
+    expected["kplanes_fwd"] += 1  # and their deformation, once
     system = res["system"]
     _, _, text, vision = system.guidance.modules
     trial_r = res["trial_dir"]
@@ -2277,7 +2304,7 @@ def mesh_phase(tmp: str) -> dict:
         "--config", STATIC_YAML, "--test", f"system.geometry.geometry_convert_from={ply}",
         f"exp_root_dir={tmp}/mesh_out"])
     templates = os.path.join(static["trial_dir"], "save", "images")
-    ok_static = (totals_s == _per(composite_coarse_fwd=1)
+    ok_static = (totals_s == _per(composite_coarse_fwd=1, kplanes_fwd=1)
                  and sorted(os.listdir(templates)) == [f"{v}.png" for v in range(4)])
     del static
 
@@ -2339,7 +2366,7 @@ def mesh_phase(tmp: str) -> dict:
     n_verts = gltf["accessors"][prim["attributes"]["POSITION"]]["count"]
     n_targets = len(prim["targets"])
     ok_glb = (int.from_bytes(raw[:4], "little") == 0x46546C67 and n_verts == n
-              and n_targets == nf and totals_e == _per(composite_coarse_fwd=1))
+              and n_targets == nf and totals_e == _per(composite_coarse_fwd=1, kplanes_fwd=1))
     wall = time.perf_counter() - t_all
     print(f"[mesh] --export {wall_e:.2f} s, launches {totals_e}; GLB {len(raw) / 2 ** 20:.2f} MiB "
           f"in {t_glb:.2f} s: {n_verts} vertices, {n_targets} morph targets; mesh-edge ARAP and "
@@ -2730,6 +2757,170 @@ def svd_phase() -> dict:
     torch.cuda.empty_cache()
     return dict(ok=ok, rows=rows, per_shape=per_shape, rel=rel, call_s=call_s)
 
+KPLANES_GRID = ((50, 50, 50, 8), (100, 100, 100, 16))  # motion_recon_frame_16.yaml
+KPLANES_N = 20000  # the recon asset and the mesh's vertices
+# every frame count a path deforms at once: the recon buckets 2 / 4 / 8 / 16,
+# the mesh's 15 active frames, the 16 of the test passes, 1 for the static
+# render, and whatever else a schedule unlocks
+KPLANES_FRAMES = tuple(range(1, RECON_FRAMES + 1))
+
+
+def _kplanes_inputs(grid, dim: int, n: int, f: int, seed: int):
+    """Seeded planes (time planes about 1, space planes in [0.1, 0.5]),
+    points in [-1.2, 1.2]^3 with corners at and beyond +-1, times from -1
+    to 1 (one frame: 0.37) and a cotangent, on the card."""
+    from animate3d_tpu_torch.gaussians.kplanes import COO_COMBS
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grids = []
+    for reso in grid:
+        planes = []
+        for c0, c1 in COO_COMBS:
+            lo, hi = (0.5, 1.5) if c1 == 3 else (0.1, 0.5)
+            u = torch.rand((dim, reso[c1], reso[c0]), generator=gen, device="cuda")
+            planes.append((lo + (hi - lo) * u).requires_grad_())
+        grids.append(planes)
+    xyz = 2.4 * torch.rand((n, 3), generator=gen, device="cuda") - 1.2
+    xyz[:4] = torch.tensor([[-1, -1, -1], [1, 1, 1], [1.0, -1.0, 1.2], [-1.5, 1.5, 0.0]])
+    ts = (torch.linspace(-1, 1, f, device="cuda") if f > 1
+          else torch.full((1,), 0.37, device="cuda"))
+    cot = torch.randn((f, n, dim * len(grid)), generator=gen, device="cuda")
+    return grids, xyz, ts, cot
+
+
+def _kplanes_rows(label: str, grid, dim: int, n: int, f: int, seed: int) -> list:
+    """Kernel I forward and backward against the plain gather at one shape:
+    features relative L2 <= 1e-6 (the plain version's float operations in
+    its order: 0 expected), the planes' gradients relative L2 <= 1e-5 each
+    (f32 sums by atomics in another order); one launch each way. Times by
+    CUDA events: the forward, and forward + backward less the forward; the
+    plain gather the same way. Bound: the features written (and in the
+    backward their gradient read) and the planes read once, at the HBM
+    rate."""
+    from animate3d_tpu_torch.gaussians.kplanes import sample_frames
+    from animate3d_tpu_torch.ops import _build, routing
+
+    grids, xyz, ts, cot = _kplanes_inputs(grid, dim, n, f, seed)
+    planes = [p for scale in grids for p in scale]
+    key = (f, n, len(grid))
+    _build.reset_launches()
+    out = sample_frames(xyz, ts, grids)
+    g_k = torch.autograd.grad(out, planes, cot)
+    torch.cuda.synchronize()
+    counts = (_build.LAUNCHES["kplanes_fwd", key], _build.LAUNCHES["kplanes_bwd", key])
+    with routing.plain_ops():
+        ref = sample_frames(xyz, ts, grids)
+        g_p = torch.autograd.grad(ref, planes, cot)
+    fwd_rel = float((out - ref).norm() / ref.norm())
+    fwd_err = float((out - ref).abs().max())
+    bwd_rel = max(float((a - b).norm() / b.norm()) for a, b in zip(g_k, g_p))
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+
+    def fwd():
+        with torch.no_grad():
+            sample_frames(xyz, ts, grids)
+
+    def both():
+        torch.autograd.grad(sample_frames(xyz, ts, grids), planes, cot)
+
+    iters = 20
+    ms_f, ms_b = _time_ms(fwd, iters), _time_ms(both, iters)
+    with routing.plain_ops():
+        pl_f, pl_b = _time_ms(fwd, 3), _time_ms(both, 3)
+    feat_bytes = out.numel() * 4
+    plane_bytes = sum(p.numel() for p in planes) * 4
+    bound_f = (feat_bytes + plane_bytes) / PEAK_BYTES * 1e3
+    bound_b = (feat_bytes + 2 * plane_bytes) / PEAK_BYTES * 1e3
+    ok = (fwd_rel <= 1e-6 and bwd_rel <= 1e-5 and counts == (1, 1)
+          and bool(torch.isfinite(out).all()))
+    rows = [dict(name="kplanes_fwd", shape=label, keys=[("kplanes_fwd", key)],
+                 max_abs_err=fwd_err, rel=fwd_rel, rel_tol=1e-6, ms=ms_f, plain_ms=pl_f,
+                 bound_ms=bound_f, bound_by="bytes", library_ms=None, ok=ok),
+            dict(name="kplanes_bwd", shape=label, keys=[("kplanes_bwd", key)],
+                 max_abs_err=bwd_err, rel=bwd_rel, rel_tol=1e-5, ms=ms_b - ms_f,
+                 plain_ms=pl_b - pl_f, bound_ms=bound_b, bound_by="bytes", library_ms=None,
+                 ok=ok)]
+    for r in rows:
+        print(f"[kplanes] {r['name']:<12} {r['shape']:<44} max|d| {r['max_abs_err']:.3e} rel L2 "
+              f"{r['rel']:.3e} (tol {r['rel_tol']:.0e}) ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms none bound_ms {r['bound_ms']:.4f} (bytes) "
+              f"launches {counts} {'ok' if r['ok'] else 'FAIL'}")
+    del grids, planes, out, ref, g_k, g_p
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kplanes_phase() -> dict:
+    """Phase 15: kernel I (the K-planes sampler) against the plain gather at
+    the paths' shapes (20,000 points, both scales, 16 channels, F 1 to 16:
+    the main paths' launch keys must each be one of these rows'); then the
+    recon field's ``deform_many`` forward and backward at 16 frames under
+    torch.profiler (kernel I's kernels by name, no indexing kernel left),
+    and the refusal of a gradient of the points and of time rows beyond a
+    block's shared memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from animate3d_tpu_torch.gaussians.deform import DeformationField, DeformConfig
+    from animate3d_tpu_torch.gaussians.kplanes import sample_frames
+    from animate3d_tpu_torch.gaussians.state import GaussianState
+
+    smi = _smi()
+    rows = []
+    for f in KPLANES_FRAMES:
+        rows += _kplanes_rows(f"recon F {f} x N {KPLANES_N}, 2 scales, C 16", KPLANES_GRID, 16,
+                              KPLANES_N, f, seed=f)
+    field = DeformationField(DeformConfig(grid_sizes=KPLANES_GRID, use_global_trans=True),
+                             generator=torch.Generator().manual_seed(0)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = KPLANES_N
+    q = torch.randn((n, 4), generator=gen, device="cuda")
+    st = GaussianState(xyz=0.4 * torch.randn((n, 3), generator=gen, device="cuda"),
+                       features_dc=torch.zeros((n, 1, 3), device="cuda"),
+                       features_rest=torch.zeros((n, 0, 3), device="cuda"),
+                       opacity=torch.zeros((n, 1), device="cuda"),
+                       scaling=torch.full((n, 3), -4.0, device="cuda"),
+                       rotation=q / q.norm(dim=-1, keepdim=True))
+    ts = torch.linspace(-1, 1, 16, device="cuda")
+
+    def deform():
+        out = field.deform_many(st, ts, False)
+        (out[0].sum() + out[1].sum()).backward()
+
+    deform()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        deform()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.self_device_time_total > 0}
+    mine = {k: v for k, v in kernels.items() if "kplanes_" in k}
+    indexing = {k: v for k, v in kernels.items()
+                if "index_elementwise" in k or "indexing_backward" in k}
+
+    def refuses(*args) -> bool:
+        try:
+            sample_frames(*args)
+        except ValueError:
+            return True
+        return False
+
+    refused = refuses(st.xyz.clone().requires_grad_(), ts, field.grids)
+    big, _, _, _ = _kplanes_inputs(((300, 300, 300, 64),), 16, 4, 2, seed=99)
+    refused_rows = refuses(st.xyz[:4], ts[:2], big)
+    del big
+    ok_trace = len(mine) >= 4 and not indexing and refused and refused_rows
+    print(f"[kplanes-profile] deform_many forward + backward at 16 frames x {n} points: kernel "
+          f"I's kernels (ms) " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(mine.items()))
+          + f"; indexing kernels {indexing or 'none'}; all kernels "
+          + "; ".join(f"{k[:50]} {v:.4f}"
+                      for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]))
+          + f"; a gradient of the points refused {refused}; time rows of 300^3 x 64 (1,152,000 "
+          f"bytes) refused {refused_rows}; card {smi}")
+    del field
+    torch.cuda.empty_cache()
+    return dict(ok=all(r["ok"] for r in rows) and ok_trace, rows=rows)
+
+
 
 def _kernel_json(rows: list, launches) -> str:
     return json.dumps({"kernels": [
@@ -2760,6 +2951,22 @@ def svd_main() -> int:
     return 0
 
 
+def kplanes_main() -> int:
+    """Phases 1 and 15 alone (``--kplanes``)."""
+    if not torch.cuda.is_available():
+        return _fail("torch.cuda.is_available() is False")
+    env_phase()
+    kp = kplanes_phase()
+    if not kp["ok"]:
+        return _fail("kernel I disagrees with the plain gather or left an indexing kernel")
+    launches = collections.Counter({key: 1 for r in kp["rows"] for key in r["keys"]})
+    print(_kernel_json(kp["rows"], launches))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def _fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1
@@ -2773,7 +2980,10 @@ def main() -> int:
     c_rows = composite_kernel_phase()
     if not all(r["ok"] for r in rows + c_rows) or not edge_phase():
         return _fail("a kernel disagrees with its plain version")
-    rows += c_rows
+    kp = kplanes_phase()
+    if not kp["ok"]:
+        return _fail("kernel I disagrees with the plain gather or left an indexing kernel")
+    rows += c_rows + kp["rows"]
     checked = {key for r in rows for key in r["keys"]}
     runs = {}
 
@@ -2972,4 +3182,6 @@ if __name__ == "__main__":
         sys.exit(_train_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--svd"]:
         sys.exit(svd_main())
+    if sys.argv[1:2] == ["--kplanes"]:
+        sys.exit(kplanes_main())
     sys.exit(main())
