@@ -7,12 +7,9 @@ layer starts at zero; time planes start at 1, space planes U(0.1, 0.5);
 with ``use_global_trans``, a global rigid rotation (sigmoid → [-π, π]
 Euler) and translation (sigmoid → [-1, 1]) from the mean feature.
 
-``deform_frames`` takes the time-factorised sampler, except with
-``use_global_trans``, where it computes :meth:`deform` for every frame
-(:meth:`deform_many`: the JAX package's ``vmap`` of ``deform``, its
-features from ``kplanes.sample_frames``: kernel I on the card). The recon
-config sets ``use_global_trans: true``, so that branch is the one stage-1
-reconstruction runs.
+``deform_frames`` computes :meth:`deform` for every frame at once, its
+features from ``kplanes.sample_frames`` (kernel I on the card), with or
+without ``use_global_trans``.
 """
 
 from __future__ import annotations
@@ -24,12 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from animate3d_tpu_torch.gaussians.kplanes import (
-    COO_COMBS,
-    interpolate_ms_features_frames,
-    plane_shapes,
-    sample_frames,
-)
+from animate3d_tpu_torch.gaussians.kplanes import COO_COMBS, plane_shapes, sample_frames
 from animate3d_tpu_torch.gaussians.state import GaussianState
 from animate3d_tpu_torch.utils import trace
 from animate3d_tpu_torch.utils.rotation import euler_to_matrix, matrix_to_quat, quat_to_matrix
@@ -120,17 +112,10 @@ class DeformationField(nn.Module):
         return self._displace(state.xyz, state.rotation, state.scaling, feats,
                               deform_scales) + (feats,)
 
-    def deform_many(self, state: GaussianState, ts: torch.Tensor, deform_scales: bool = False):
-        """:meth:`deform` at each of the F times ``ts``, with a frame axis
-        written out: (means (F, N, 3), rotations (F, N, 4), scales (F, N, 3))."""
-        feats = sample_frames(state.xyz, ts, self.grids)
-        return self._displace(state.xyz, state.rotation, state.scaling, feats, deform_scales)
-
     @trace.spanned("deform.frames")
     def deform_frames(self, state: GaussianState, ts: torch.Tensor,
                       deform_scales: bool = False):
-        """All frames: (means (F, N, 3), rotations (F, N, 4), scales (F, N, 3))."""
-        if self.config.use_global_trans:
-            return self.deform_many(state, ts, deform_scales)
-        feats = interpolate_ms_features_frames(state.xyz, ts, self.grids)
+        """:meth:`deform` at each of the F times ``ts``, with a frame axis
+        written out: (means (F, N, 3), rotations (F, N, 4), scales (F, N, 3))."""
+        feats = sample_frames(state.xyz, ts, self.grids)
         return self._displace(state.xyz, state.rotation, state.scaling, feats, deform_scales)

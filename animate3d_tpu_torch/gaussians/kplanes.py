@@ -5,9 +5,8 @@ Per scale, one (C, H, W) plane for each of the six 2-combinations of
 (x, y, z, t) in itertools order; features are bilinearly sampled per plane
 (align_corners=True, border clamp), multiplied across planes and
 concatenated across scales. :func:`grid_sample_2d` reproduces the JAX
-package's bilinear gather (not ``F.grid_sample``);
-:func:`interpolate_ms_features_frames` is its time-factorised form over all
-frames at once (dense axis-weight contractions). :func:`sample_frames` is
+package's bilinear gather (not ``F.grid_sample``). :func:`sample_frames`,
+the one sampler of every deformation config, is
 :func:`interpolate_ms_features` at every frame: on the card, kernel I
 (``ops/kplanes.py``).
 """
@@ -69,44 +68,6 @@ def sample_frames(xyz: torch.Tensor, ts: torch.Tensor,
     f, n = ts.shape[0], xyz.shape[0]
     pts = torch.cat([xyz.expand(f, n, 3), ts[:, None, None].expand(f, n, 1)], dim=-1)
     return interpolate_ms_features(pts.reshape(f * n, 4), grids).reshape(f, n, -1)
-
-
-def axis_weights(coord: torch.Tensor, reso: int) -> torch.Tensor:
-    """coord (M,) in [-1, 1] → (M, reso) bilinear weights, <= 2 nonzeros a row."""
-    x = torch.clamp((coord + 1.0) * 0.5 * (reso - 1), 0.0, reso - 1)
-    x0 = torch.clamp(torch.floor(x).long(), 0, reso - 1)
-    x1 = torch.clamp(x0 + 1, max=reso - 1)
-    fx = (x - x0)[:, None]
-    cells = torch.arange(reso, device=coord.device)
-    zero = torch.zeros((), dtype=coord.dtype, device=coord.device)
-    return (torch.where(cells == x0[:, None], 1.0 - fx, zero)
-            + torch.where(cells == x1[:, None], fx, zero))
-
-
-@trace.spanned("kplanes.sample")
-def interpolate_ms_features_frames(xyz: torch.Tensor, ts: torch.Tensor,
-                                   grids: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
-    """(F, N, C · n_scales) features of all N points at all F frames: the
-    three spatial planes are sampled once, the three time planes per frame."""
-    outs = []
-    for planes in grids:
-        reso = {}
-        for ci, (c0, c1) in enumerate(COO_COMBS):
-            _, h, w = planes[ci].shape
-            reso[c0], reso[c1] = w, h
-        waxes = {a: axis_weights(xyz[:, a], reso[a]) for a in range(3)}
-        wt = axis_weights(ts, reso[3])
-        spatial = temporal = None
-        for ci, (c0, c1) in enumerate(COO_COMBS):
-            if c1 != 3:
-                feat = torch.einsum("chw,nw,nh->nc", planes[ci], waxes[c0], waxes[c1])
-                spatial = feat if spatial is None else spatial * feat
-            else:
-                feat = torch.einsum("ctw,nw->nct", planes[ci], waxes[c0])
-                feat = torch.einsum("nct,ft->fnc", feat, wt)
-                temporal = feat if temporal is None else temporal * feat
-        outs.append(spatial[None] * temporal)
-    return torch.cat(outs, dim=-1)
 
 
 def plane_shapes(grid_sizes: Sequence[Sequence[int]], dim: int) -> List[List[tuple]]:

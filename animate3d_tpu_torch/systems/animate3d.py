@@ -556,7 +556,7 @@ class Animate3DSystem:
         """Deterministic renders (no draws), each item deformed at its time."""
         ts = torch.as_tensor(np.asarray(timestamps), dtype=torch.float32, device=self.device)
         uniq, inverse = torch.unique(ts, return_inverse=True)
-        deformed = self.field.deform_many(self.state, uniq, False)
+        deformed = self.field.deform_frames(self.state, uniq, False)
         return render_batch(self.state, lambda _: tuple(d[inverse] for d in deformed),
                             cameras, ts, renderer_cfg or self.cfg.renderer,
                             do_reconstruction=False)

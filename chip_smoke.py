@@ -122,7 +122,7 @@ runs phases 1 and 14 alone;
 15. K-planes: kernel I (``csrc/kplanes.cu``) forward and backward against
    the plain gather at every shape the recon, refine, eval and mesh paths
    give it (20,000 points, both scales, 16 channels, F 1 to 16), with
-   kernel / plain times and the bound; the recon field's ``deform_many``
+   kernel / plain times and the bound; the recon field's ``deform_frames``
    forward and backward under torch.profiler (no indexing kernel left); a
    gradient of the points and time rows beyond a block's shared memory
    refused.
@@ -153,16 +153,11 @@ import time
 import numpy as np
 import torch
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
-PEAK_F64_FLOPS = 34e12  # H100 SXM f64 rate outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
-PEAK_EX2 = 3.9e12  # H100 SXM SFU: 16 ex2 a clock an SM x 132 SMs x 1.83 GHz
+from animate3d_tpu_torch.ops._build import COUNTERS
+from benchmark.counts.families import family
+from benchmark.counts.peaks import PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_EX2, PEAK_F32_FLOPS
 
-COUNTERS = ("flash_fwd", "packed_attn", "geglu", "flash_bwd_dq", "flash_bwd_dkv",
-            "packed_attn_bwd", "composite_coarse_fwd", "composite_coarse_bwd",
-            "composite_fields_fwd", "composite_fields_bwd", "packed_temporal",
-            "kplanes_fwd", "kplanes_bwd")
+PEAK_F64_FLOPS = 34e12  # H100 SXM f64 rate outside the tensor cores (G's cull bound only)
 
 
 def _per(**counts) -> dict:
@@ -295,8 +290,6 @@ def env_phase() -> dict:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     from animate3d_tpu_torch.ops import _build
 
-    if tuple(_build.COUNTERS) != COUNTERS:
-        raise RuntimeError(f"launch counters {_build.COUNTERS} differ from {COUNTERS}")
     t0 = time.perf_counter()
     took = _build.build()
     wall = time.perf_counter() - t0
@@ -657,35 +650,6 @@ def e2e_phase(tmp: str, res: int = 256, per_forward: dict = PER_FORWARD,
                 wall_s=wall, peak_gb=peak_gb, run_s=out["run_seconds"])
 
 
-def _family(name: str) -> str:
-    n = name.lower()
-    for key, fam in (("composite_coarse_fwd_kernel", "kernel H fwd"),
-                     ("composite_coarse_bwd_kernel", "kernel H bwd"),
-                     ("composite_fields_fwd_kernel", "kernel G fwd"),
-                     ("composite_fields_bwd_kernel", "kernel G bwd"),
-                     ("topk", "top-k binning"), ("sort", "top-k binning"),
-                     ("gesvd", "SVD (ARAP)"), ("svd", "SVD (ARAP)"),
-                     ("scatter", "gather / scatter"), ("gather", "gather / scatter"),
-                     ("index", "gather / scatter"),
-                     ("flash_fwd_kernel", "kernel A flash_fwd"),
-                     ("packed_attn_kernel", "kernel B packed_attn"),
-                     ("geglu_gemm_kernel", "kernel C geglu"),
-                     ("flash_bwd_delta_kernel", "kernel D flash_bwd Delta"),
-                     ("flash_bwd_kernel", "kernel D flash_bwd pass"),
-                     ("cast_scaled_kernel", "kernel D flash_bwd cast"),
-                     ("cast_heads_kernel", "kernel D flash_bwd cast"),
-                     ("packed_attn_bwd_kernel", "kernel E packed_attn_bwd"),
-                     ("softmax", "plain attention softmax"),
-                     ("conv", "convolution (cuDNN)"), ("xmma_fprop", "convolution (cuDNN)"),
-                     ("implicit", "convolution (cuDNN)"),
-                     ("norm", "group/layer norm"),
-                     ("gemm", "matmul (cuBLAS)"), ("nvjet", "matmul (cuBLAS)"),
-                     ("cutlass", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)")):
-        if key in n:
-            return fam
-    return "elementwise / copy / other"
-
-
 def _print_profile(tag: str, what: str, prof, wall_ms: float) -> dict:
     """Device time by kernel family, the idle share of the host-clock wall
     and the top kernels of one profiled window; returns the ms of each
@@ -695,7 +659,7 @@ def _print_profile(tag: str, what: str, prof, wall_ms: float) -> dict:
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            fams[_family(e.key)] = fams.get(_family(e.key), 0.0) + dev_us / 1e3
+            fams[family(e.key)] = fams.get(family(e.key), 0.0) + dev_us / 1e3
             kernels.append((dev_us / 1e3, e.count, e.key))
     busy = sum(fams.values())
     if not busy:
@@ -2854,7 +2818,7 @@ def kplanes_phase() -> dict:
     """Phase 15: kernel I (the K-planes sampler) against the plain gather at
     the paths' shapes (20,000 points, both scales, 16 channels, F 1 to 16:
     the main paths' launch keys must each be one of these rows'); then the
-    recon field's ``deform_many`` forward and backward at 16 frames under
+    recon field's ``deform_frames`` forward and backward at 16 frames under
     torch.profiler (kernel I's kernels by name, no indexing kernel left),
     and the refusal of a gradient of the points and of time rows beyond a
     block's shared memory."""
@@ -2883,7 +2847,7 @@ def kplanes_phase() -> dict:
     ts = torch.linspace(-1, 1, 16, device="cuda")
 
     def deform():
-        out = field.deform_many(st, ts, False)
+        out = field.deform_frames(st, ts, False)
         (out[0].sum() + out[1].sum()).backward()
 
     deform()
@@ -2909,7 +2873,7 @@ def kplanes_phase() -> dict:
     refused_rows = refuses(st.xyz[:4], ts[:2], big)
     del big
     ok_trace = len(mine) >= 4 and not indexing and refused and refused_rows
-    print(f"[kplanes-profile] deform_many forward + backward at 16 frames x {n} points: kernel "
+    print(f"[kplanes-profile] deform_frames forward + backward at 16 frames x {n} points: kernel "
           f"I's kernels (ms) " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(mine.items()))
           + f"; indexing kernels {indexing or 'none'}; all kernels "
           + "; ".join(f"{k[:50]} {v:.4f}"

@@ -67,6 +67,19 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_chip_smoke_takes_the_shared_constants():
+    """chip_smoke.py's peaks, kernel families and launch counters are the
+    very objects of ``benchmark/counts`` and ``ops/_build.py``, not copies."""
+    import chip_smoke
+    from animate3d_tpu_torch.ops import _build
+    from benchmark.counts import families, peaks
+
+    for name in ("PEAK_BF16_FLOPS", "PEAK_F32_FLOPS", "PEAK_BYTES", "PEAK_EX2"):
+        assert getattr(chip_smoke, name) is getattr(peaks, name), name
+    assert chip_smoke.family is families.family
+    assert chip_smoke.COUNTERS is _build.COUNTERS
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, pkgutil, importlib, animate3d_tpu_torch\n"
             "for m in pkgutil.walk_packages(animate3d_tpu_torch.__path__, 'animate3d_tpu_torch.'):\n"

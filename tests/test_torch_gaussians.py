@@ -1,9 +1,10 @@
 """The port's gaussian modules against the JAX package's, on the CPU:
 rotation and SH helpers, the PLY round trip both ways, the K-planes
-samplers, ``DeformationField.deform_frames`` with and without the global
-transform (weights carried across by ``deform_params_from_flax``), KNN,
-connectivity and the ARAP energy with the same node sample. Inputs are made
-by numpy from a seed."""
+sampler (the port's ``sample_frames`` against JAX's time-factorised
+``interpolate_ms_features_frames``), ``DeformationField.deform_frames``
+with and without the global transform (weights carried across by
+``deform_params_from_flax``), KNN, connectivity and the ARAP energy with the
+same node sample. Inputs are made by numpy from a seed."""
 
 import json
 import math
@@ -147,7 +148,7 @@ def test_interpolate_ms_features_match_jax():
     tg = [[T(p) for p in s] for s in grids]
     jg = [[jnp.asarray(p) for p in s] for s in grids]
     np.testing.assert_allclose(
-        kplanes.interpolate_ms_features_frames(T(xyz), T(ts), tg).numpy(),
+        kplanes.sample_frames(T(xyz), T(ts), tg).numpy(),
         np.asarray(jax.jit(jkp.interpolate_ms_features_frames)(jnp.asarray(xyz),
                                                                jnp.asarray(ts), jg)),
         atol=1e-5)
@@ -193,7 +194,7 @@ def test_deform_frames_matches_jax(deform_case, global_trans):
     with torch.no_grad():
         got = field.deform_frames(st, torch.linspace(-1, 1, 4), True)
         got_one = field.deform(st, 0.25, False)[:3]
-        many = field.deform_many(st, torch.tensor([0.25]), False)
+        many = field.deform_frames(st, torch.tensor([0.25]), False)
     assert np.abs(ref[0] - st.xyz.numpy()).max() > 1e-2  # the field moves the points
     for a, b, name in zip(list(got) + list(got_one), ref + one, ("xyz", "rot", "scales") * 2):
         np.testing.assert_allclose(a.numpy(), b, atol=2e-5, err_msg=name)

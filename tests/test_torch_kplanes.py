@@ -3,9 +3,10 @@
 On the CPU it is the plain gather (``interpolate_ms_features`` on the
 points ``cat(xyz, t)`` of every frame), held here against that gather frame
 by frame, values and plane gradients, with points at and beyond ±1 and
-times at both ends; ``deform_many`` and ``features()`` give what they gave
-before it. On the card it is kernel I (``csrc/kplanes.cu``), held against
-the plain gather (``routing.plain_ops``) by the ``cuda`` tests at the recon
+times at both ends; ``deform_frames`` and ``features()`` give what they
+gave before it, and ``deform_frames`` samples through it with or without
+the global transform. On the card it is kernel I (``csrc/kplanes.cu``),
+held against the plain gather (``routing.plain_ops``) by the ``cuda`` tests at the recon
 shapes. This file imports nothing of JAX: the JAX-parity tests of the
 gather stay in ``tests/test_torch_gaussians.py``.
 """
@@ -50,6 +51,16 @@ def _times(f, device="cpu"):
     return torch.tensor(ts, dtype=torch.float32, device=device)
 
 
+def _state(rng, n, device="cpu"):
+    """N gaussians at :func:`_points`, unit rotations, small scales."""
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    return GaussianState.from_numpy(
+        xyz=_points(rng, n).numpy(), features_dc=np.zeros((n, 1, 3)),
+        features_rest=np.zeros((n, 0, 3)), opacity=np.zeros((n, 1)),
+        scaling=rng.normal(-3, 0.1, (n, 3)),
+        rotation=q / np.linalg.norm(q, axis=-1, keepdims=True), device=device)
+
+
 def _per_frame(xyz, ts, grids):
     """The gather one frame at a time, as ``deform`` asks it."""
     n = xyz.shape[0]
@@ -78,7 +89,7 @@ def test_sample_frames_on_cpu_is_the_gather_at_every_frame(f):
 
 
 def test_deform_many_and_features_unchanged():
-    """``deform_many`` against its earlier body (the gather on the
+    """``deform_frames`` against its earlier body (the gather on the
     expanded points) and ``features()`` against the one-frame gather,
     bitwise."""
     rng = np.random.default_rng(9)
@@ -90,14 +101,10 @@ def test_deform_many_and_features_unchanged():
         for name, p in field.named_parameters():
             if name.endswith("out.weight"):
                 p.copy_(torch.tensor(rng.normal(0, 0.2, p.shape).astype(np.float32)))
-    q = rng.normal(size=(n, 4)).astype(np.float32)
-    st = GaussianState.from_numpy(
-        xyz=_points(rng, n).numpy(), features_dc=np.zeros((n, 1, 3)),
-        features_rest=np.zeros((n, 0, 3)), opacity=np.zeros((n, 1)),
-        scaling=rng.normal(-3, 0.1, (n, 3)), rotation=q / np.linalg.norm(q, axis=-1, keepdims=True))
+    st = _state(rng, n)
     ts = _times(4)
     with torch.no_grad():
-        got = field.deform_many(st, ts, True)
+        got = field.deform_frames(st, ts, True)
         pts = torch.cat([st.xyz.expand(4, n, 3), ts[:, None, None].expand(4, n, 1)], dim=-1)
         feats = kplanes.interpolate_ms_features(pts.reshape(4 * n, 4), field.grids)
         want = field._displace(st.xyz, st.rotation, st.scaling, feats.reshape(4, n, -1), True)
@@ -106,6 +113,31 @@ def test_deform_many_and_features_unchanged():
         t = torch.tensor(0.25)
         assert torch.equal(field.features(st.xyz, 0.25), kplanes.interpolate_ms_features(
             torch.cat([st.xyz, t.expand(n, 1)], dim=-1), field.grids))
+
+
+@pytest.mark.parametrize("global_trans", [False, True])
+def test_deform_frames_samples_through_sample_frames(monkeypatch, global_trans):
+    """Every deformation config takes its features from ``sample_frames``
+    (kernel I on the card): one call a ``deform_frames`` call."""
+    from animate3d_tpu_torch.gaussians import deform
+
+    calls = []
+
+    def counted(*args):
+        calls.append(args[1].shape[0])
+        return kplanes.sample_frames(*args)
+
+    monkeypatch.setattr(deform, "sample_frames", counted)
+    rng = np.random.default_rng(4)
+    n = 20
+    field = DeformationField(DeformConfig(grid_sizes=GRID, grid_feature_dim=4,
+                                          use_global_trans=global_trans),
+                             generator=torch.Generator().manual_seed(0))
+    st = _state(rng, n)
+    with torch.no_grad():
+        out = field.deform_frames(st, _times(3), True)
+    assert calls == [3]
+    assert out[0].shape == (3, n, 3)
 
 
 def test_kernel_i_refuses_time_rows_beyond_shared_memory():
@@ -201,15 +233,10 @@ def test_deform_many_launches_no_index_kernel_on_cuda():
                              generator=torch.Generator().manual_seed(0)).cuda()
     rng = np.random.default_rng(1)
     n = 2000
-    q = rng.normal(size=(n, 4)).astype(np.float32)
-    st = GaussianState.from_numpy(
-        xyz=_points(rng, n).numpy(), features_dc=np.zeros((n, 1, 3)),
-        features_rest=np.zeros((n, 0, 3)), opacity=np.zeros((n, 1)),
-        scaling=rng.normal(-3, 0.1, (n, 3)),
-        rotation=q / np.linalg.norm(q, axis=-1, keepdims=True), device="cuda")
+    st = _state(rng, n, "cuda")
     ts = _times(16, "cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = field.deform_many(st, ts, True)
+        out = field.deform_frames(st, ts, True)
         sum(o.sum() for o in out).backward()
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()]

@@ -1,7 +1,9 @@
 """Stable Video Diffusion XT in the port against its plain reference.
 
-``animate3d_tpu_torch/reference/svd_xt.py`` is written from the published
-description and imports nothing but torch; the port's modules
+``benchmark/reference/svd/svd_xt.py``, the one plain reference of SVD-XT
+(the benchmark's ``correct`` reads it too), is written from the published
+description and imports nothing but torch and the benchmark's
+``precision.q``, here in its default float32 mode; the port's modules
 (``models/unet_svd.py``, ``models/vae_temporal.py``, the Euler-EDM
 scheduler, ``pipelines/svd_sampler.py``) are held to it on seeded weights
 at a tiny size (widths 32 / 64, two levels, 5 frames), in float32 on the
@@ -25,7 +27,8 @@ from animate3d_tpu_torch.models.unet_svd import (
 )
 from animate3d_tpu_torch.ops import attention as TA
 from animate3d_tpu_torch.pipelines.svd_sampler import SVDSampler, SVDSamplerConfig
-from animate3d_tpu_torch.reference import svd_xt as R
+from benchmark.reference import precision
+from benchmark.reference.svd import svd_xt as R
 
 F_ = 5  # frames of the tiny clips
 
@@ -284,27 +287,40 @@ def test_packed_kernel_at_s25_matches_plain_on_cuda(b, c, h):
     assert rel(_unmasked_padded(q, k, v, h, 0.125), want) > 0.05
 
 
+def test_svd_reference_is_the_frozen_copy_in_f32():
+    """The reference the port is held to is the benchmark's, in float32:
+    its ``q`` leaves bf16 and f32 operands as ``x.float()`` bit for bit,
+    never the float8 control's rounding."""
+    assert R.__name__ == "benchmark.reference.svd.svd_xt"
+    assert precision.MODE == "f32"
+    x = torch.randn(64, 48, generator=torch.Generator().manual_seed(0)) * 3.0
+    for t in (x, x.bfloat16()):
+        got = R.q(t)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, t.float())
+
+
 def test_reference_imports_nothing_but_torch():
-    """The plain reference's own imports are torch and the standard
-    library's, and importing it loads no module of the port beyond the
-    packages around it, nor JAX."""
+    """The plain reference's own imports are torch, the standard library's
+    and the benchmark's ``precision``, and importing it, from the repo's
+    root, loads no module of the port nor JAX."""
     import ast
     import subprocess
     import sys
     from pathlib import Path
 
     src = Path(R.__file__).read_text()
-    names = {a.name.split(".")[0] for n in ast.walk(ast.parse(src))
+    names = {a.name for n in ast.walk(ast.parse(src))
              if isinstance(n, ast.Import) for a in n.names}
-    names |= {n.module.split(".")[0] for n in ast.walk(ast.parse(src))
+    names |= {n.module for n in ast.walk(ast.parse(src))
               if isinstance(n, ast.ImportFrom) and n.module}
-    assert names <= {"__future__", "math", "dataclasses", "typing", "torch"}, names
-    code = ("import sys; import animate3d_tpu_torch.reference.svd_xt;"
+    assert {m.split(".")[0] for m in names} <= {"__future__", "math", "dataclasses", "typing",
+                                                "torch", "benchmark"}, names
+    assert {m for m in names if m.startswith("benchmark")} <= {"benchmark.reference.precision"}
+    code = ("import sys; import benchmark.reference.svd.svd_xt;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
-            " 'animate3d_tpu') or (m.startswith('animate3d_tpu_torch') and m not in"
-            " ('animate3d_tpu_torch', 'animate3d_tpu_torch.reference',"
-            " 'animate3d_tpu_torch.reference.svd_xt')));"
+            " 'animate3d_tpu', 'animate3d_tpu_torch'));"
             "print(bad); assert not bad")
-    out = subprocess.run([sys.executable, "-c", code], cwd=Path(R.__file__).parents[2],
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(R.__file__).parents[3],
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr
