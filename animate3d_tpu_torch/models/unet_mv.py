@@ -9,6 +9,7 @@ names (``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_q.weight``).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -31,6 +32,7 @@ from animate3d_tpu_torch.models.unet_blocks import (
     SpatialTransformer,
     Upsample2D,
 )
+from animate3d_tpu_torch.models import unet_graph
 from animate3d_tpu_torch.ops import routing
 from animate3d_tpu_torch.utils import trace
 
@@ -100,6 +102,8 @@ class MVMotionUNet(nn.Module):
         # the dtype the UNet computes in; None: its parameters' (the trainer
         # sets it where frozen or trainable weights are stored in f32)
         self.compute_dtype: Optional[torch.dtype] = None
+        # the no-grad forward's CUDA graphs, by call signature
+        self._graphs = unet_graph.GraphCache()
         learnable = cfg.motion_attn.spatial_encoding == "learnable"
         if learnable and cfg.latent_size is None:
             raise ValueError("the learnable spatial encoding needs MVUNetConfig.latent_size")
@@ -177,7 +181,24 @@ class MVMotionUNet(nn.Module):
                 i2v_cond_time_zero: bool = False) -> torch.Tensor:
         """latents (B·N, F, h, w, C), timesteps () or (B·N,), text context
         (B·N, 77, D), camera (B·N, 16), image embeds (B·N, D_img) → noise
-        prediction (B·N, F, h, w, C_out) in the UNet's compute dtype."""
+        prediction (B·N, F, h, w, C_out) in the UNet's compute dtype.
+
+        Without gradients, in eval mode and on CUDA, the forward replays
+        from a CUDA graph per call signature (``models/unet_graph.py``);
+        otherwise it runs eagerly."""
+        if not unet_graph.engages(latents, self.training):
+            trace.count(("unet_graph", "eager"), 1)
+            return self._forward(latents, timesteps, encoder_hidden_states, camera,
+                                 image_embeds, i2v_cond_time_zero)
+        tensors = (latents, torch.as_tensor(timesteps, device=latents.device),
+                   encoder_hidden_states, camera, image_embeds)
+        key = unet_graph.call_key(tensors, i2v_cond_time_zero, self.compute_dtype)
+        graphs = self._graphs
+        return graphs.run(key, graphs.weights(self), functools.partial(
+            self._forward, i2v_cond_time_zero=i2v_cond_time_zero), tensors)
+
+    def _forward(self, latents, timesteps, encoder_hidden_states, camera, image_embeds,
+                 i2v_cond_time_zero):
         cfg = self.config
         bn, f, hh, ww, c_in = latents.shape
         if bn % cfg.num_views:

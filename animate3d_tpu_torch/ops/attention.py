@@ -563,6 +563,18 @@ def attention_backend(name: str):
         _override.name = prev
 
 
+def backend_in_scope() -> str:
+    """The backend :func:`attention_backend` forces in this scope (this
+    thread), or "auto"."""
+    return getattr(_override, "name", None) or "auto"
+
+
+def ring_in_scope() -> bool:
+    """Whether :func:`sp_ring` routes this scope's (this thread's)
+    self-attention through ring attention."""
+    return getattr(_override, "sp", None) is not None
+
+
 # the shortest sequence the sp ring takes (the JAX package's SP_MIN_SEQ):
 # shorter ones, such as the 16-token temporal sites, would spend more on the
 # ring's hops than on their whole local attention
@@ -635,7 +647,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             from animate3d_tpu_torch.parallel import sp_attention
 
             return sp_attention.ring_attention_sharded(mesh, q, k, v, num_heads, scale)
-    backend = getattr(_override, "name", None) or "auto"
+    backend = backend_in_scope()
     on_cuda = q.device.type == "cuda"
     if backend == "auto":
         plan = attention_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[-1],

@@ -28,14 +28,19 @@ def plain_ops():
         _local.plain = prev
 
 
+def plain_in_scope() -> bool:
+    """Whether :func:`plain_ops` is in scope on this thread."""
+    return getattr(_local, "plain", False)
+
+
 def kernels_enabled(device) -> bool:
     """Whether the routers launch a kernel for tensors on ``device``."""
-    return device.type == "cuda" and not getattr(_local, "plain", False)
+    return device.type == "cuda" and not plain_in_scope()
 
 
 def recompute_contexts():
     """``context_fn`` for ``torch.utils.checkpoint(use_reentrant=False)``:
     the recomputation, which runs in autograd's thread, takes the same
     implementations as the forward did in this thread."""
-    plain = getattr(_local, "plain", False)
+    plain = plain_in_scope()
     return contextlib.nullcontext(), (plain_ops() if plain else contextlib.nullcontext())

@@ -685,12 +685,15 @@ def _share(prof: dict, *families: str) -> str:
 
 def reference_phase() -> dict:
     """One full-width UNet forward on the CFG batch (2 x 4 views x 16
-    frames) profiled by kernel family, then one forward on the same batch
-    through the kernels (each launched exactly its per-forward count)
-    against the same forward with every op on its plain version. Tolerance:
-    5e-2 relative L2, the bf16 noise of the kernels' f32 sums taken in
-    another order (and so a flipped rounding of a bf16 P or GEGLU hidden
-    here and there) carried through 53 blocks."""
+    frames) profiled by kernel family, replayed from its CUDA graph as
+    sampling runs it (``models/unet_graph.py``: the first call warms up,
+    the second captures); the replay against the eager forward (gradients
+    on), bit for bit; then one replayed forward through the kernels (each
+    launched exactly its per-forward count) against the same forward with
+    every op on its plain version. Tolerance: 5e-2 relative L2, the bf16
+    noise of the kernels' f32 sums taken in another order (and so a flipped
+    rounding of a bf16 P or GEGLU hidden here and there) carried through 53
+    blocks."""
     from torch.profiler import ProfilerActivity, profile
 
     from animate3d_tpu_torch.models.factory import build_models
@@ -705,14 +708,22 @@ def reference_phase() -> dict:
     cam = torch.as_tensor(get_camera(4), device="cuda").repeat(2, 1)
     t = torch.tensor(501, device="cuda")
     with torch.inference_mode():
-        unet(lat, t, text, cam, img)  # warm-up
+        for _ in range(2):  # warm-up, capture
+            unet(lat, t, text, cam, img)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            unet(lat, t, text, cam, img)
+            replayed = unet(lat, t, text, cam, img)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    fams = _print_profile("[profile]", "one UNet forward, CFG batch 128 frames", prof, wall_ms)
+    fams = _print_profile("[profile]", "one replayed UNet forward, CFG batch 128 frames", prof,
+                          wall_ms)
+    with torch.enable_grad():
+        eager = unet(lat, t, text, cam, img)
+    graph_ok = torch.equal(replayed, eager)
+    print(f"[reference] full-width CFG forward replayed from its CUDA graph vs eager: "
+          f"bitwise equal {graph_ok}, max|d| {float((replayed - eager).abs().max()):.3e}")
+    del replayed, eager
 
     with torch.inference_mode():
         _build.reset_launches()
@@ -726,7 +737,7 @@ def reference_phase() -> dict:
         plain_counts = _build.launch_totals()
     rel = float((out_k - out_p).norm() / out_p.norm())
     counts_ok = kernel_counts == PER_FORWARD and not any(plain_counts.values())
-    ok = rel <= 5e-2 and bool(torch.isfinite(out_k).all()) and counts_ok
+    ok = rel <= 5e-2 and bool(torch.isfinite(out_k).all()) and counts_ok and graph_ok
     print(f"[reference] full-width UNet forward on the CFG batch, kernels vs plain ops: "
           f"relative L2 {rel:.3e} (tol 5e-2), max|d| "
           f"{float((out_k - out_p).abs().max()):.3e}, max|plain| {float(out_p.abs().max()):.3e}; "
@@ -2558,7 +2569,8 @@ def dist_phase(tmp: str, ply: str, frames: str) -> dict:
     cam = torch.as_tensor(get_camera(4), device="cuda")
     ts = sampler.active_timesteps()[:1]
     with torch.inference_mode():
-        sampler.denoise(lat, lat[:, :1], ctx, cam, img, ts)  # warm-up
+        for _ in range(2):  # the UNet's warm-up and capture: the profiled step replays
+            sampler.denoise(lat, lat[:, :1], ctx, cam, img, ts)
         _build.reset_launches()
         with profile_trace(os.path.join(tmp, "trace")) as prof:
             sampler.denoise(lat, lat[:, :1], ctx, cam, img, ts)
