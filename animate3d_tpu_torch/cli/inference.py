@@ -22,7 +22,14 @@ Diffusion XT image-to-video instead: ``--image <png>`` (resized to the
 yaml's ``width`` x ``height``) through ``pipelines/svd_sampler.py``
 (``models/factory.py::build_svd_models``, then the released ``unet/``,
 ``vae/``, ``image_encoder/`` under ``--flax_params`` where they exist), and
-a ``num_frames``-frame GIF. ``model_type`` defaults to the MV-VDM.
+a ``num_frames``-frame GIF. With ``model_type: cogvideox_i2v``
+(``configs/inference/cogvideox_5b_i2v.yaml``) it runs CogVideoX-5B
+image-to-video: ``--image <png>`` and ``--prompt`` through
+``pipelines/cogvideox_sampler.py`` (``models/factory.py::build_cogvideox_models``,
+then the release's ``transformer/``, ``vae/``, ``text_encoder/`` under
+``--flax_params`` where they exist; without a T5 SentencePiece model the
+prompt's ids are ``cogvideox_sampler.stand_in_ids``), and a GIF of the
+decoded frames. ``model_type`` defaults to the MV-VDM.
 
 ``--mesh_sp N`` (or the yaml's ``mesh_sp``), under ``torchrun`` with N
 processes (NCCL on CUDA, gloo with ``--device cpu``), shards the token axis
@@ -55,7 +62,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--ip_image_root", default=None,
                         help="dir with the N conditioning renders {0..N-1}.png (MV-VDM)")
     parser.add_argument("--image", default=None,
-                        help="the conditioning image of model_type svd_xt")
+                        help="the conditioning image of model_type svd_xt / cogvideox_i2v")
     parser.add_argument("--ip_image_name", default="")
     parser.add_argument("--save_name", default="sample")
     parser.add_argument("--output_dir", default="outputs/inference")
@@ -115,8 +122,11 @@ def main(argv=None) -> dict:
     model_type = cfg_yaml.get("model_type", "mvvdm")
     if model_type == "svd_xt":
         return _svd_main(args, cfg_yaml)
+    if model_type == "cogvideox_i2v":
+        return _cogvideox_main(args, cfg_yaml)
     if model_type != "mvvdm":
-        parser.error(f"model_type {model_type!r} is not one of 'mvvdm', 'svd_xt'")
+        parser.error(f"model_type {model_type!r} is not one of 'mvvdm', 'svd_xt', "
+                     "'cogvideox_i2v'")
     if not args.ip_image_root:
         parser.error("the MV-VDM needs --ip_image_root")
     args.W, args.H, args.L = args.W or 256, args.H or 256, args.L or 16
@@ -263,6 +273,70 @@ def _svd_main(args, cfg_yaml: dict) -> dict:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     pil = [Image.fromarray(f) for f in frames]
     pil[0].save(out, save_all=True, append_images=pil[1:], duration=1000 // scfg.fps, loop=0)
+    print(f"saved {out} ({len(pil)} frames at {scfg.width}x{scfg.height})")
+    return {"gif": out, "latents": latents, "frames": frames, "loaded": loaded,
+            "step_seconds": list(sampler.step_seconds), "run_seconds": run_seconds,
+            "profile": prof}
+
+
+def _cogvideox_main(args, cfg_yaml: dict) -> dict:
+    """``model_type: cogvideox_i2v``: one image and a prompt to a
+    ``num_frames``-frame video. Returns {"gif", "latents", "frames" (F, H,
+    W, 3) uint8, "loaded", "step_seconds", "run_seconds", "profile"}."""
+    from PIL import Image
+
+    from animate3d_tpu_torch.convert.weights import load_cogvideox_artifacts
+    from animate3d_tpu_torch.core.device import resolve_device
+    from animate3d_tpu_torch.models.factory import build_cogvideox_models
+    from animate3d_tpu_torch.pipelines.cogvideox_sampler import (
+        CogVideoXSampler,
+        CogVideoXSamplerConfig,
+        stand_in_ids,
+    )
+    from animate3d_tpu_torch.utils import trace
+    from animate3d_tpu_torch.utils.logging import profile_trace
+
+    if not args.image:
+        raise SystemExit("model_type cogvideox_i2v needs --image <png>")
+    dev = resolve_device(args.device)
+    model_size = args.model_size or cfg_yaml.get("model_size", "full")
+    transformer, vae, t5 = build_cogvideox_models(model_size, dev, seed=args.seed)
+    loaded = {}
+    if args.flax_params and os.path.isdir(args.flax_params):
+        dtype = next(transformer.parameters()).dtype
+        transformer.float()  # released files: round once, after loading
+        loaded = load_cogvideox_artifacts(args.flax_params, transformer, vae, t5)
+        transformer.to(dtype)
+        print(f"[weights] loaded {sorted(loaded)} from {args.flax_params}: {loaded}")
+    if "transformer" not in loaded:
+        print("WARNING: no transformer weights given — random init (smoke mode)")
+    print("[prompt] no T5 SentencePiece model in the repository: stand-in ids")
+    keys = set(CogVideoXSamplerConfig.__dataclass_fields__)
+    scfg = CogVideoXSamplerConfig(**{k: v for k, v in cfg_yaml.items() if k in keys})
+    overrides = dict(width=args.W, height=args.H, num_frames=args.L,
+                     num_inference_steps=args.steps)
+    scfg = CogVideoXSamplerConfig(**{**scfg.__dict__, **{k: v for k, v in overrides.items() if v}})
+    sampler = CogVideoXSampler(transformer, vae, t5, scfg)
+    img = Image.open(args.image).convert("RGB").resize((scfg.width, scfg.height), Image.LANCZOS)
+    image = torch.as_tensor(np.asarray(img, np.float32) / 255.0, device=dev)[None]
+    n, vocab = transformer.config.max_text_seq_length, t5.config.vocab_size
+    ids = torch.tensor([stand_in_ids(args.prompt, n, vocab)], device=dev)
+    negative = torch.tensor([stand_in_ids("", n, vocab)], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_run = time.perf_counter()
+    with profile_trace(args.profile_dir) as prof:
+        latents = sampler.sample(image, ids, negative, gen)
+        video = sampler.decode(latents)
+        if dev.type == "cuda":
+            trace.synchronize(dev)
+    run_seconds = time.perf_counter() - t_run
+    frames = ((video[0].clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8).cpu().numpy()
+    out = os.path.join(args.output_dir, args.save_name, "0-cogvideox.gif")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    pil = [Image.fromarray(f) for f in frames]
+    pil[0].save(out, save_all=True, append_images=pil[1:], duration=125, loop=0)
     print(f"saved {out} ({len(pil)} frames at {scfg.width}x{scfg.height})")
     return {"gif": out, "latents": latents, "frames": frames, "loaded": loaded,
             "step_seconds": list(sampler.step_seconds), "run_seconds": run_seconds,

@@ -27,6 +27,10 @@ rules do: adapter keys lose ``.processor.``, and ``to_k_ip.0`` / ``to_v_ip.0``
 The VAE's and the CLIP towers' keys are the port's own names; the legacy
 VAE attention names (``query``, ``key``, ``value``, ``proj_attn``) are
 renamed to ``to_q``, ``to_k``, ``to_v``, ``to_out.0``.
+
+The video models' releases (Stable Video Diffusion, CogVideoX) carry the
+port's names as they are: :func:`load_svd_artifacts`,
+:func:`load_cogvideox_artifacts`.
 """
 
 from __future__ import annotations
@@ -395,4 +399,39 @@ def load_svd_artifacts(root: str, unet=None, vae=None, vision_model=None) -> Dic
     if path:
         missing, unexpected = load_clip_state(vision_model, path)
         audit["image_encoder"] = {"missing": len(missing), "unexpected": len(unexpected)}
+    return audit
+
+
+def _model_shards(d: str) -> List[str]:
+    """A component directory's weight files: one of ``MODEL_FILES`` (or its
+    fp16 variant), else every shard of a sharded release
+    (``*-00001-of-00003.safetensors`` and the like), in name order."""
+    single = find_model_file(d, SVD_MODEL_FILES)
+    if single:
+        return [single]
+    if not os.path.isdir(d):
+        return []
+    shard = re.compile(r".*-\d{5}-of-\d{5}\.(safetensors|bin)$")
+    return sorted(os.path.join(d, f) for f in os.listdir(d) if shard.match(f))
+
+
+def load_cogvideox_artifacts(root: str, transformer=None, vae=None,
+                             t5=None) -> Dict[str, dict]:
+    """Load a CogVideoX release laid out as on the hub (``transformer/``,
+    ``vae/``, ``text_encoder/`` under ``root``, single files or shards) into
+    the port's modules, whose names are diffusers' and transformers' own:
+    every key loads as it is, but the T5 encoder's ``encoder.embed_tokens``,
+    which ties to ``shared``. Returns {component: {missing, unexpected}} for
+    each component with files; a component without files is left out."""
+    audit: Dict[str, dict] = {}
+    for name, module in (("transformer", transformer), ("vae", vae), ("text_encoder", t5)):
+        paths = _model_shards(os.path.join(root, name)) if module is not None else []
+        if not paths:
+            continue
+        sd: Dict[str, torch.Tensor] = {}
+        for path in paths:
+            sd.update(load_torch_state_dict(path))
+        sd.pop("encoder.embed_tokens.weight", None)
+        missing, unexpected = _assign(module, sd)
+        audit[name] = {"missing": len(missing), "unexpected": len(unexpected)}
     return audit

@@ -3,6 +3,10 @@
 diffusers DDIMScheduler with the reference config (1000 train steps, linear
 betas 0.00085 → 0.012, steps_offset 1, no clipping) as table lookups, and
 the FreeInit butterworth low-pass frequency mix via ``torch.fft``.
+CogVideoX's ``CogVideoXDDIMScheduler`` is the same scheduler with options
+the MV-VDM's config leaves off: v-prediction, ``trailing`` spacing, the
+SNR shift and the zero-terminal-SNR rescale of sqrt(ᾱ); its sampler steps
+on host floats (:meth:`DDIMScheduler.step_coefficients`).
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ class SchedulerConfig:
     steps_offset: int = 1
     clip_sample: bool = False
     set_alpha_to_one: bool = True
-    prediction_type: str = "epsilon"
+    prediction_type: str = "epsilon"  # epsilon | v_prediction
+    timestep_spacing: str = "leading"  # leading | trailing
+    snr_shift_scale: float = 1.0
+    rescale_betas_zero_snr: bool = False
 
 
 class DDIMScheduler:
@@ -39,15 +46,28 @@ class DDIMScheduler:
         else:
             raise ValueError(config.beta_schedule)
         alphas_cumprod = np.cumprod(1.0 - betas)
+        if config.snr_shift_scale != 1.0:
+            k = config.snr_shift_scale
+            alphas_cumprod = alphas_cumprod / (k + (1 - k) * alphas_cumprod)
+        if config.rescale_betas_zero_snr:
+            root = np.sqrt(alphas_cumprod)
+            first, last = root[0], root[-1]
+            alphas_cumprod = ((root - last) * first / (first - last)) ** 2
         final = 1.0 if config.set_alpha_to_one else alphas_cumprod[0]
         self.config = config
+        self.alphas64, self.final64 = alphas_cumprod, float(final)  # the host-float step's
         self.alphas_cumprod = torch.as_tensor(alphas_cumprod, dtype=torch.float32,
                                               device=device)
         self.final_alpha_cumprod = torch.as_tensor(final, dtype=torch.float32,
                                                    device=device)
 
     def timesteps(self, num_inference_steps: int) -> torch.Tensor:
-        """Descending int64 timesteps ('leading' spacing + steps_offset)."""
+        """Descending int64 timesteps: 'leading' spacing + steps_offset, or
+        'trailing' (T, T - T/n, ... rounded, minus one)."""
+        if self.config.timestep_spacing == "trailing":
+            t = self.config.num_train_timesteps
+            ts = np.round(np.arange(t, 0, -t / num_inference_steps)).astype(np.int64) - 1
+            return torch.as_tensor(ts, dtype=torch.int64, device=self.alphas_cumprod.device)
         step_ratio = self.config.num_train_timesteps // num_inference_steps
         ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1].copy()
         return torch.as_tensor(ts + self.config.steps_offset, dtype=torch.int64,
@@ -57,17 +77,40 @@ class DDIMScheduler:
         t = torch.as_tensor(t, device=self.alphas_cumprod.device)
         return self.alphas_cumprod[t.clamp(min=0)]
 
+    def _epsilon_only(self) -> None:
+        if self.config.prediction_type != "epsilon":
+            raise ValueError("the tensor step reads epsilon; a v-prediction model steps "
+                             "through step_coefficients")
+
     def pred_original(self, sample: torch.Tensor, eps: torch.Tensor, t) -> torch.Tensor:
         """x0 prediction from epsilon."""
+        self._epsilon_only()
         a_t = self._alpha(t)
         if a_t.dim():
             a_t = a_t.reshape((-1,) + (1,) * (sample.dim() - 1))
         return (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
 
+    def step_coefficients(self, t: int, num_inference_steps: int) -> Tuple[float, float]:
+        """(c_x, c_m) of the eta-0 step from host timestep ``t``: prev_sample
+        = c_x · sample + c_m · model_output, from the float64 table (no
+        device read)."""
+        prev = t - self.config.num_train_timesteps // num_inference_steps
+        a_t = float(self.alphas64[t])
+        a_prev = float(self.alphas64[prev]) if prev >= 0 else self.final64
+        if self.config.prediction_type == "v_prediction":
+            # x0 = sqrt(a_t) x - sqrt(1 - a_t) v, then prev = c_a x + c_b x0
+            c_a = ((1 - a_prev) / (1 - a_t)) ** 0.5
+            c_b = a_prev ** 0.5 - a_t ** 0.5 * c_a
+            return c_a + c_b * a_t ** 0.5, -c_b * (1 - a_t) ** 0.5
+        # x0 = (x - sqrt(1 - a_t) eps) / sqrt(a_t), prev = sqrt(a_prev) x0 + sqrt(1 - a_prev) eps
+        r = (a_prev / a_t) ** 0.5
+        return r, (1 - a_prev) ** 0.5 - r * (1 - a_t) ** 0.5
+
     def step(self, eps: torch.Tensor, t, sample: torch.Tensor,
              num_inference_steps: int, eta: float = 0.0,
              noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """One DDIM step. Returns (prev_sample, pred_x0)."""
+        self._epsilon_only()
         cfg = self.config
         t = torch.as_tensor(t, device=self.alphas_cumprod.device)
         prev_t = t - cfg.num_train_timesteps // num_inference_steps

@@ -212,3 +212,37 @@ def build_svd_models(model_size: str = "full", device=None, seed: int = 0,
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     unet.to(dtype)
     return unet, vae, vision
+
+
+def build_cogvideox_models(model_size: str = "full", device=None, seed: int = 0,
+                           dtype: Optional[torch.dtype] = None) -> tuple:
+    """(transformer, vae, t5) of CogVideoX-5B-I2V at ``full`` (the released
+    configs) or ``tiny`` scale on ``device`` (default ``cuda``), seeded as
+    :func:`build_models` seeds the MV-VDM. The transformer samples in
+    ``dtype`` (default bf16 on CUDA, float32 on the CPU); the VAE and the T5
+    encoder are float32. All in eval mode, frozen."""
+    from animate3d_tpu_torch.models.t5 import T5Config, T5EncoderModel
+    from animate3d_tpu_torch.models.transformer_cogvideox import (
+        CogVideoXConfig,
+        CogVideoXTransformer3DModel,
+    )
+    from animate3d_tpu_torch.models.vae_cogvideox import AutoencoderKLCogVideoX, VAE3DConfig
+
+    dev = resolve_device(device)
+    if model_size == "tiny":
+        tcfg = T5Config.tiny()
+        ccfg, vcfg = CogVideoXConfig.tiny(tcfg.d_model), VAE3DConfig.tiny()
+    elif model_size == "full":
+        ccfg, vcfg, tcfg = CogVideoXConfig(), VAE3DConfig(), T5Config()
+    else:
+        raise ValueError(f"model_size must be 'full' or 'tiny', got {model_size!r}")
+    with dev:
+        mods = (CogVideoXTransformer3DModel(ccfg), AutoencoderKLCogVideoX(vcfg),
+                T5EncoderModel(tcfg))
+    for i, m in enumerate(mods):
+        init_params(m, seed + i)
+        m.eval().requires_grad_(False)
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    mods[0].to(dtype)
+    return mods

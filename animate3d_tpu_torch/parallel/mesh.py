@@ -20,7 +20,8 @@ the JAX mesh lays out its devices; each axis has its own process group.
     otherwise (``mesh.py:54-70``).
 
 At world size 1 every collective is a no-op. Nothing here starts a process
-group at import time.
+group at import time. The collectives over an axis are the spans
+``mesh.all_reduce`` and ``mesh.all_gather`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from animate3d_tpu_torch.utils import trace
 
 
 def init_distributed(device: torch.device) -> Tuple[torch.device, bool]:
@@ -50,8 +53,10 @@ def init_distributed(device: torch.device) -> Tuple[torch.device, bool]:
 
 
 def leave(joined: bool) -> None:
-    """Leave the process group that :func:`init_distributed` joined."""
+    """Leave the process group that :func:`init_distributed` joined, every
+    rank together: a barrier, then out of the group."""
     if joined:
+        dist.barrier()
         dist.destroy_process_group()
 
 
@@ -165,15 +170,16 @@ def all_reduce_(mesh: Mesh, tensors: Sequence[torch.Tensor], op: str = "mean",
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(flat, group=group)
-        if op == "mean":
-            flat /= mesh.size(axis)
-        i = 0
-        for t in ts:
-            t.copy_(flat[i:i + t.numel()].view_as(t))
-            i += t.numel()
+    with trace.span("mesh.all_reduce"):
+        for ts in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.all_reduce(flat, group=group)
+            if op == "mean":
+                flat /= mesh.size(axis)
+            i = 0
+            for t in ts:
+                t.copy_(flat[i:i + t.numel()].view_as(t))
+                i += t.numel()
 
 
 def all_gather_rows(mesh: Mesh, x: torch.Tensor, axis: str = "dp") -> torch.Tensor:
@@ -183,7 +189,8 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor, axis: str = "dp") -> torch.Tens
     if group is None:
         return x
     parts = [torch.empty_like(x) for _ in range(mesh.size(axis))]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    with trace.span("mesh.all_gather"):
+        dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
 
 
@@ -209,7 +216,7 @@ def gather_shards_(mesh: Mesh, tensors: Sequence[torch.Tensor],
     if group is None:
         return
     size = mesh.size(axis)
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("mesh.all_gather"):
         for t, sl in zip(tensors, shards):
             if sl is not None:
                 dist.all_gather(list(t.data.chunk(size)), t.data[sl].clone(), group=group)
